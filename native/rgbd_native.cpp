@@ -1,8 +1,8 @@
-// Native data-path for the TPU RGB-D engine.
+// Native data-path for the RGB-D engine.
 //
 // The reference library leans on OpenCV's C++ image I/O for its loader
 // (SURVEY.md §2.1 "TUM dataset loader", L4); this is the same component
-// TPU-side: a small C++ decode/prefetch core (libpng + zlib, no OpenCV
+// here: a small C++ decode/prefetch core (libpng + zlib, no OpenCV
 // dependency) exposed through a C ABI that Python binds with ctypes
 // (data/native_loader.py). Decoding 16-bit depth PNGs is the host-side
 // cost of the odometry pipeline; doing it here keeps the Python thread

@@ -30,6 +30,8 @@ import jax
 import jax.numpy as jnp
 
 from rgbd_pose_estimation_tpu.core.lie import (
+    HIGHEST,
+    matmul,
     se3_adjoint,
     se3_exp,
     se3_inverse,
@@ -73,7 +75,7 @@ def _residual_jacobians(T, X, cam_idx, lm_idx, obs, obs_z=None, depth_weight=1.0
     Tc = T[cam_idx]  # (O, 4, 4)
     Xl = X[lm_idx]  # (O, 3)
     R = Tc[:, :3, :3]
-    Xc = jnp.einsum("oij,oj->oi", R, Xl) + Tc[:, :3, 3]
+    Xc = jnp.einsum("oij,oj->oi", R, Xl, precision=HIGHEST) + Tc[:, :3, 3]
     x, y, z = Xc[:, 0], Xc[:, 1], jnp.maximum(Xc[:, 2], 1e-6)
     iz = 1.0 / z
     iz2 = iz * iz
@@ -99,7 +101,7 @@ def _residual_jacobians(T, X, cam_idx, lm_idx, obs, obs_z=None, depth_weight=1.0
         ],
         axis=-2,
     )  # (O, 3, 3)
-    Jl = jnp.einsum("oai,oij->oaj", P, R)
+    Jl = jnp.einsum("oai,oij->oaj", P, R, precision=HIGHEST)
     return r, Jc, Jl
 
 
@@ -111,14 +113,12 @@ def _huber_w(r, delta):
 def make_reduction_slots(idx, n: int, max_inflation: float = 1.6):
     """Host-side slot table turning ``segment_sum`` into gather + free sum.
 
-    TPU scatter is index-rate-bound at ~0.14 G idx/s (BASELINE.md rounds
-    3+4 — HALF the gather unit's rate), and the BA CG matvec does two
-    segment_sums per iteration, which made ``ba_step`` scatter-bound at
-    ~1.1 M obs/s. ``slots[i]`` lists the observation rows of segment ``i``
-    (padded with the sentinel ``len(idx)``); the reduction then becomes
-    ``x_padded[slots].sum(1)`` — a gather (0.3–0.7 G idx/s) plus a
-    bucketed sum that is pure streaming (~free). Measured at O=98k:
-    camera side 687 → 264 µs, landmark side 689 → ~180 µs at inflation 1.
+    The BA CG matvec does two segment_sums per iteration, and a scatter
+    can be slower than a gather on the device. ``slots[i]`` lists the
+    observation rows of segment ``i`` (padded with the sentinel
+    ``len(idx)``); the reduction then becomes ``x_padded[slots].sum(1)``
+    — a gather plus a bucketed sum that is pure streaming. Whether this
+    pays on the H100 is not measured yet (ROADMAP Queue 1).
 
     Returns ``None`` when the padded table would exceed ``max_inflation``
     × O indices (pathological imbalance — scatter wins there), letting
@@ -195,10 +195,10 @@ def ba_step(prob: BAProblem, cfg: BAConfig, psum=None, psum_lm=None,
             return psum_lm(_seg_by_slots(x, lm_slots))
         return psum_lm(jax.ops.segment_sum(x, prob.lm_idx, num_segments=L))
 
-    U = seg_cam(jnp.einsum("oai,oaj->oij", wJc, Jc))  # (C, 6, 6)
-    V = seg_lm(jnp.einsum("oai,oaj->oij", wJl, Jl))  # (L, 3, 3)
-    bc = -seg_cam(jnp.einsum("oai,oa->oi", wJc, r))  # (C, 6)
-    bl = -seg_lm(jnp.einsum("oai,oa->oi", wJl, r))  # (L, 3)
+    U = seg_cam(jnp.einsum("oai,oaj->oij", wJc, Jc, precision=HIGHEST))  # (C, 6, 6)
+    V = seg_lm(jnp.einsum("oai,oaj->oij", wJl, Jl, precision=HIGHEST))  # (L, 3, 3)
+    bc = -seg_cam(jnp.einsum("oai,oa->oi", wJc, r, precision=HIGHEST))  # (C, 6)
+    bl = -seg_lm(jnp.einsum("oai,oa->oi", wJl, r, precision=HIGHEST))  # (L, 3)
 
     U = U + lam * jnp.eye(6, dtype=T.dtype)
     V = V + lam * jnp.eye(3, dtype=T.dtype)
@@ -213,41 +213,47 @@ def ba_step(prob: BAProblem, cfg: BAConfig, psum=None, psum_lm=None,
     if prob.prior_i is not None:
         pi, pj, wp = prob.prior_i, prob.prior_j, prob.prior_w
         Ai = se3_adjoint(prob.prior_T_inv)  # (E, 6, 6)
-        r_p = se3_log(prob.prior_T_inv @ T[pi] @ se3_inverse(T[pj]))
+        r_p = se3_log(matmul(matmul(prob.prior_T_inv, T[pi]), se3_inverse(T[pj])))
         cost = cost + jnp.sum(wp * jnp.sum(r_p * r_p, axis=-1))
-        U = U.at[pi].add(jnp.einsum("eki,ekj->eij", Ai, Ai) * wp[:, None, None])
+        U = U.at[pi].add(
+            jnp.einsum("eki,ekj->eij", Ai, Ai, precision=HIGHEST)
+            * wp[:, None, None]
+        )
         U = U.at[pj].add(wp[:, None, None] * jnp.eye(6, dtype=T.dtype))
-        bc = bc.at[pi].add(-jnp.einsum("eki,ek->ei", Ai, r_p) * wp[:, None])
+        bc = bc.at[pi].add(
+            -jnp.einsum("eki,ek->ei", Ai, r_p, precision=HIGHEST) * wp[:, None]
+        )
         bc = bc.at[pj].add(wp[:, None] * r_p)
 
         def prior_cross(x):  # off-diagonal camera-camera blocks of H
-            yi = -jnp.einsum("eki,ek->ei", Ai, x[pj]) * wp[:, None]
-            yj = -jnp.einsum("eik,ek->ei", Ai, x[pi]) * wp[:, None]
+            yi = -jnp.einsum("eki,ek->ei", Ai, x[pj], precision=HIGHEST) * wp[:, None]
+            yj = -jnp.einsum("eik,ek->ei", Ai, x[pi], precision=HIGHEST) * wp[:, None]
             return jnp.zeros_like(x).at[pi].add(yi).at[pj].add(yj)
 
     def cam_from_lm(u_l):
         """y_c = Σ_obs Jcᵀ w Jl u_{l(o)}  — camera-side gather of landmark vec."""
-        t = jnp.einsum("oaj,oj->oa", Jl, u_l[prob.lm_idx])  # (O, 2)
-        return seg_cam(jnp.einsum("oai,oa->oi", wJc, t))
+        t = jnp.einsum("oaj,oj->oa", Jl, u_l[prob.lm_idx], precision=HIGHEST)  # (O, 2)
+        return seg_cam(jnp.einsum("oai,oa->oi", wJc, t, precision=HIGHEST))
 
     def lm_from_cam(x_c):
         """t_l = Σ_obs Jlᵀ w Jc x_{c(o)}  — landmark-side gather of camera vec."""
-        t = jnp.einsum("oai,oi->oa", Jc, x_c[prob.cam_idx])  # (O, 2)
-        return seg_lm(jnp.einsum("oaj,oa->oj", wJl, t))
+        t = jnp.einsum("oai,oi->oa", Jc, x_c[prob.cam_idx], precision=HIGHEST)  # (O, 2)
+        return seg_lm(jnp.einsum("oaj,oa->oj", wJl, t, precision=HIGHEST))
 
     gauge_mask = (jnp.arange(C) > 0).astype(T.dtype)[:, None]
 
     def S_matvec(x_c):
         x_c = x_c * gauge_mask
-        ux = jnp.einsum("cij,cj->ci", U, x_c)
+        ux = jnp.einsum("cij,cj->ci", U, x_c, precision=HIGHEST)
         t_l = lm_from_cam(x_c)
-        u_l = jnp.einsum("lij,lj->li", Vinv, t_l)
+        u_l = jnp.einsum("lij,lj->li", Vinv, t_l, precision=HIGHEST)
         y = ux - cam_from_lm(u_l)
         if prior_cross is not None:
             y = y + prior_cross(x_c)
         return y * gauge_mask
 
-    rhs = (bc - cam_from_lm(jnp.einsum("lij,lj->li", Vinv, bl))) * gauge_mask
+    vb = jnp.einsum("lij,lj->li", Vinv, bl, precision=HIGHEST)
+    rhs = (bc - cam_from_lm(vb)) * gauge_mask
 
     # Fixed-iteration CG on the reduced camera system (HOT LOOP #5).
     def cg_body(carry, _):
@@ -269,10 +275,10 @@ def ba_step(prob: BAProblem, cfg: BAConfig, psum=None, psum_lm=None,
 
     # Back-substitute landmark updates (HOT LOOP #4's closure).
     dl = jnp.einsum(
-        "lij,lj->li", Vinv, bl - lm_from_cam(dx_c)
+        "lij,lj->li", Vinv, bl - lm_from_cam(dx_c), precision=HIGHEST,
     )
 
-    T_new = se3_exp(dx_c) @ T
+    T_new = matmul(se3_exp(dx_c), T)
     X_new = X + dl
     return prob._replace(poses=T_new, points=X_new), cost
 
@@ -291,8 +297,7 @@ def ba_solve(prob: BAProblem, cfg: BAConfig = BAConfig(), slots: bool = True):
 
     ``slots=True`` (default) builds scatter-free reduction tables on the
     host when the index arrays are concrete and well-balanced
-    (:func:`make_reduction_slots`) — measured ~2x on the whole solve at
-    config-5 sizes; pass False (or call under jit with traced indices) to
+    (:func:`make_reduction_slots`); pass False (or call under jit with traced indices) to
     keep the segment_sum path.
     """
     cam_slots = lm_slots = None
@@ -327,7 +332,7 @@ def with_odometry_priors(
         return prob
     pi = jnp.asarray([a for a, _ in edges], jnp.int32)
     pj = jnp.asarray([b for _, b in edges], jnp.int32)
-    Tm = prob.poses[pi] @ se3_inverse(prob.poses[pj])
+    Tm = matmul(prob.poses[pi], se3_inverse(prob.poses[pj]))
     return prob._replace(
         prior_i=pi,
         prior_j=pj,
@@ -393,7 +398,9 @@ def make_synthetic_ba_problem(
     lm_idx = jnp.repeat(
         jnp.arange(num_points, dtype=jnp.int32), obs_per_point
     )
-    Xc = jnp.einsum("oij,oj->oi", T_gt[cam_idx, :3, :3], X_gt[lm_idx]) + T_gt[
+    Xc = jnp.einsum(
+        "oij,oj->oi", T_gt[cam_idx, :3, :3], X_gt[lm_idx], precision=HIGHEST
+    ) + T_gt[
         cam_idx, :3, 3
     ]
     z = jnp.maximum(Xc[:, 2], 1e-3)
@@ -406,7 +413,7 @@ def make_synthetic_ba_problem(
     # Perturbed initialization (what odometry would hand BA).
     dxi = jax.random.normal(k5, (num_cameras, 6)) * pose_noise
     dxi = dxi.at[0].set(0.0)  # gauge camera stays
-    T0 = se3_exp(dxi) @ T_gt
+    T0 = matmul(se3_exp(dxi), T_gt)
     X0 = X_gt + jax.random.normal(k6, (num_points, 3)) * point_noise
     prob = BAProblem(
         poses=T0, points=X0, cam_idx=cam_idx, lm_idx=lm_idx, obs=obs, w=w,

@@ -1,6 +1,6 @@
 """Batched SO(3)/SE(3) Lie-group operations in pure JAX.
 
-TPU-native replacement for the reference's Eigen geometry core (SURVEY.md L0:
+Replacement for the reference's Eigen geometry core (SURVEY.md L0:
 ``Matrix3/Vector3/Quaterniond`` + SO(3)/SE(3) ops). Everything here:
 
 - is batched over arbitrary leading axes (``...`` in shapes);
@@ -10,17 +10,31 @@ TPU-native replacement for the reference's Eigen geometry core (SURVEY.md L0:
   so it jits, vmaps and shards cleanly.
 
 Poses are canonically 4x4 homogeneous matrices (``(..., 4, 4)``): composition
-is then a plain matmul, which the MXU eats for free when batched. ``(R, t)``
-accessors are provided for code that wants the split form.
+is then a plain matmul. ``(R, t)`` accessors are provided for code that wants
+the split form.
+
+Every matrix product here, and every geometric product in the package, runs
+at ``HIGHEST`` precision: on a GPU a DEFAULT-precision f32 matmul may run in
+TF32 (about three decimal digits), which drifts chained poses and moves
+inlier decisions, and these products are far too small for TF32 to save
+time.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 # Below this angle (radians) we switch to Taylor expansions of the
 # trigonometric ratios; 1e-4 keeps full f32 accuracy on both branches.
 _SMALL_ANGLE = 1e-4
+
+
+def matmul(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
+    """``A @ B`` at full f32 precision (see the module docstring)."""
+    return jnp.matmul(A, B, precision=HIGHEST)
 
 
 def so3_hat(w: jnp.ndarray) -> jnp.ndarray:
@@ -62,7 +76,7 @@ def so3_exp(w: jnp.ndarray) -> jnp.ndarray:
     """Rodrigues' formula: ``(..., 3)`` tangent → ``(..., 3, 3)`` rotation."""
     theta = jnp.linalg.norm(w, axis=-1)
     W = so3_hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     a = _sinc(theta)[..., None, None]
     b = _cosc(theta)[..., None, None]
     eye = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), W.shape)
@@ -91,7 +105,7 @@ def so3_log(R: jnp.ndarray) -> jnp.ndarray:
     k = jnp.argmax(diag, axis=-1)
     # Take column k of B and normalize; gather via one-hot to stay batched.
     onehot = jax_one_hot(k, 3, R.dtype)
-    col = jnp.einsum("...ij,...j->...i", B, onehot)
+    col = jnp.einsum("...ij,...j->...i", B, onehot, precision=HIGHEST)
     axis = col / jnp.maximum(jnp.linalg.norm(col, axis=-1, keepdims=True), 1e-12)
     # Sign: make axis agree with vee(R - R^T) when that is nonzero.
     sign = jnp.where(
@@ -112,7 +126,7 @@ def _left_jacobian(w: jnp.ndarray) -> jnp.ndarray:
     """SO(3) left Jacobian V(w): translation part of the SE(3) exponential."""
     theta = jnp.linalg.norm(w, axis=-1)
     W = so3_hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     b = _cosc(theta)[..., None, None]
     # (theta - sin theta)/theta^3 with Taylor fallback 1/6 - t^2/120.
     small = theta < _SMALL_ANGLE
@@ -130,7 +144,7 @@ def _left_jacobian_inv(w: jnp.ndarray) -> jnp.ndarray:
     """Closed-form inverse of the SO(3) left Jacobian."""
     theta = jnp.linalg.norm(w, axis=-1)
     W = so3_hat(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     small = theta < _SMALL_ANGLE
     safe = jnp.where(small, jnp.ones_like(theta), theta)
     half = safe * 0.5
@@ -152,7 +166,7 @@ def se3_exp(xi: jnp.ndarray) -> jnp.ndarray:
     """
     v, w = xi[..., :3], xi[..., 3:]
     R = so3_exp(w)
-    t = jnp.einsum("...ij,...j->...i", _left_jacobian(w), v)
+    t = jnp.einsum("...ij,...j->...i", _left_jacobian(w), v, precision=HIGHEST)
     return rt_to_matrix(R, t)
 
 
@@ -160,7 +174,7 @@ def se3_log(T: jnp.ndarray) -> jnp.ndarray:
     """SE(3) logarithm: ``(..., 4, 4)`` pose → ``(..., 6)`` twist [v, w]."""
     R, t = matrix_to_rt(T)
     w = so3_log(R)
-    v = jnp.einsum("...ij,...j->...i", _left_jacobian_inv(w), t)
+    v = jnp.einsum("...ij,...j->...i", _left_jacobian_inv(w), t, precision=HIGHEST)
     return jnp.concatenate([v, w], axis=-1)
 
 
@@ -189,18 +203,20 @@ def se3_inverse(T: jnp.ndarray) -> jnp.ndarray:
     """Inverse of a rigid transform without a general 4x4 solve."""
     R, t = matrix_to_rt(T)
     Rt = jnp.swapaxes(R, -1, -2)
-    return rt_to_matrix(Rt, -jnp.einsum("...ij,...j->...i", Rt, t))
+    Rt_t = jnp.einsum("...ij,...j->...i", Rt, t, precision=HIGHEST)
+    return rt_to_matrix(Rt, -Rt_t)
 
 
 def se3_compose(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """A @ B — spelled out so intent is greppable at call sites."""
-    return A @ B
+    return matmul(A, B)
 
 
 def se3_apply(T: jnp.ndarray, points: jnp.ndarray) -> jnp.ndarray:
     """Apply ``(..., 4, 4)`` pose(s) to ``(..., N, 3)`` points."""
     R, t = matrix_to_rt(T)
-    return jnp.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+    Rp = jnp.einsum("...ij,...nj->...ni", R, points, precision=HIGHEST)
+    return Rp + t[..., None, :]
 
 
 def se3_adjoint(T: jnp.ndarray) -> jnp.ndarray:
@@ -211,7 +227,7 @@ def se3_adjoint(T: jnp.ndarray) -> jnp.ndarray:
     """
     R, t = matrix_to_rt(T)
     tx = so3_hat(t)
-    top = jnp.concatenate([R, tx @ R], axis=-1)
+    top = jnp.concatenate([R, matmul(tx, R)], axis=-1)
     bottom = jnp.concatenate([jnp.zeros_like(R), R], axis=-1)
     return jnp.concatenate([top, bottom], axis=-2)
 
@@ -304,7 +320,7 @@ def rotmat_to_quat(R: jnp.ndarray) -> jnp.ndarray:
     k = jnp.argmax(pivots, axis=-1)
     cands = jnp.stack([qw0, qx0, qy0, qz0], axis=-2)  # (..., 4 cands, 4)
     onehot = jax_one_hot(k, 4, R.dtype)
-    q = jnp.einsum("...ck,...c->...k", cands, onehot)
+    q = jnp.einsum("...ck,...c->...k", cands, onehot, precision=HIGHEST)
     q = q / jnp.maximum(jnp.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
     # Canonical sign: w >= 0.
     return q * jnp.where(q[..., :1] < 0, -1.0, 1.0)

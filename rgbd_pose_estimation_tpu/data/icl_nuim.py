@@ -233,11 +233,10 @@ def write_synthetic_icl(
     raw release — so the loader (including the ray→planar conversion) is
     testable hermetically. Returns the CameraIntrinsics used.
     """
-    import cv2
-
     import jax
     import jax.numpy as jnp
 
+    from rgbd_pose_estimation_tpu.data.png import write_png
     from rgbd_pose_estimation_tpu.data.synthetic import synthetic_sequence
     from rgbd_pose_estimation_tpu.eval.traj_io import write_tum_trajectory
 
@@ -259,9 +258,9 @@ def write_synthetic_icl(
         gray8 = np.asarray(
             jnp.clip(intensities[i] * 255.0, 0, 255).astype(jnp.uint8)
         )
-        cv2.imwrite(
+        write_png(
             os.path.join(root, f"scene_00_{i}.png"),
-            cv2.cvtColor(gray8, cv2.COLOR_GRAY2BGR),
+            np.repeat(gray8[..., None], 3, -1),
         )
     write_tum_trajectory(os.path.join(root, "scene_00.gt.freiburg"), ts, poses)
     with open(os.path.join(root, "intrinsics.txt"), "w") as f:

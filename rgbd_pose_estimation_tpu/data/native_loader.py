@@ -1,8 +1,8 @@
 """ctypes binding for the native C++ PNG decode core (native/rgbd_native.cpp).
 
-Builds the shared library on demand with the repo Makefile (g++ + libpng are
-part of the toolchain) and caches the handle; every entry point falls back
-to OpenCV transparently if the native library is unavailable, so the
+Builds the shared library on demand with the repo Makefile (g++ + libpng)
+and caches the handle; every decode entry point falls back to the stdlib
+PNG codec (data/png.py) if the native library is unavailable, so the
 framework never hard-depends on the build step.
 """
 
@@ -14,6 +14,8 @@ import subprocess
 import threading
 
 import numpy as np
+
+from rgbd_pose_estimation_tpu.data.png import luma8, read_png
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -43,7 +45,7 @@ def _load():
                 # old .so only on success — a failed rebuild (e.g. missing
                 # toolchain/libpng on a deploy host) leaves any previously
                 # working library intact, and we load that one instead of
-                # silently degrading to the cv2 fallback.
+                # silently degrading to the Python fallback.
                 build = subprocess.run(
                     ["make", "-s", "-B"], cwd=_NATIVE_DIR, capture_output=True
                 )
@@ -118,12 +120,13 @@ def png_dims(path: str):
 
 
 def decode_depth16(path: str) -> np.ndarray:
-    """16-bit TUM depth PNG → (H, W) uint16 (native; cv2 fallback)."""
+    """16-bit TUM depth PNG → (H, W) uint16 (native; Python fallback)."""
     lib = _load()
     if lib is None:
-        import cv2
-
-        return cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        img = read_png(path)
+        if img.dtype != np.uint16 or img.ndim != 2:
+            raise IOError(f"{path}: not a 16-bit grayscale PNG")
+        return img
     w, h, _, _ = _dims(lib, path)
     out = np.empty((h, w), np.uint16)
     rc = lib.rgbd_decode_depth16(
@@ -135,13 +138,10 @@ def decode_depth16(path: str) -> np.ndarray:
 
 
 def decode_gray8(path: str) -> np.ndarray:
-    """Any PNG → (H, W) uint8 luma (native; cv2 fallback)."""
+    """Any PNG → (H, W) uint8 luma (native; Python fallback)."""
     lib = _load()
     if lib is None:
-        import cv2
-
-        img = cv2.imread(path)
-        return cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        return luma8(read_png(path))
     w, h, _, _ = _dims(lib, path)
     out = np.empty((h, w), np.uint8)
     rc = lib.rgbd_decode_gray8(

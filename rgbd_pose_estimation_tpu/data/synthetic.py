@@ -17,7 +17,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics, pixel_grid
-from rgbd_pose_estimation_tpu.core.lie import se3_apply, se3_exp, matrix_to_rt
+from rgbd_pose_estimation_tpu.core.lie import (
+    HIGHEST,
+    matmul,
+    matrix_to_rt,
+    se3_apply,
+    se3_exp,
+)
 
 
 def synthetic_correspondences(
@@ -138,7 +144,7 @@ def synthetic_depth_scene(cam: CameraIntrinsics, T_wc: jnp.ndarray):
     Fully jit-able; used inside vmapped sequence generation.
     """
     R, t = matrix_to_rt(T_wc)
-    center = -jnp.einsum("ji,j->i", R, t)  # camera center in world
+    center = -jnp.einsum("ji,j->i", R, t, precision=HIGHEST)  # camera center in world
     uv = pixel_grid(cam)
     d_cam = jnp.stack(
         [
@@ -148,10 +154,16 @@ def synthetic_depth_scene(cam: CameraIntrinsics, T_wc: jnp.ndarray):
         ],
         axis=-1,
     )  # unit-z rays: ray parameter == camera depth
-    d_world = jnp.einsum("ji,hwj->hwi", R, d_cam)
+    d_world = jnp.einsum("ji,hwj->hwi", R, d_cam, precision=HIGHEST)
     origins = jnp.broadcast_to(center, d_world.shape)
     depth = _raycast(origins, d_world)
     hits = origins + depth[..., None] * d_world
+    # The plane z = 3.0 lies exactly on a texture-lattice boundary (z * 40 =
+    # 120): snap its hits to the plane, or rounding (which differs between
+    # backends, e.g. fused multiply-adds on a GPU) flips the lattice cell
+    # pixel by pixel and the texture turns into view-dependent noise.
+    on_plane = jnp.abs(hits[..., 2] - _PLANE_Z) < 1e-4
+    hits = hits.at[..., 2].set(jnp.where(on_plane, _PLANE_Z, hits[..., 2]))
     intensity = jnp.where(depth > 0, _texture(hits), 0.0)
     return depth, intensity
 
@@ -237,7 +249,7 @@ def handheld_trajectory(key, n_frames: int, trans_scale=0.03, rot_scale=0.025):
     _, vels = jax.lax.scan(smooth, jnp.zeros(6), deltas)
 
     def step(T, v):
-        T_next = se3_exp(v) @ T
+        T_next = matmul(se3_exp(v), T)
         return T_next, T_next
 
     T0 = jnp.eye(4)
@@ -288,7 +300,7 @@ def synthetic_sequence(
     _, vels = jax.lax.scan(smooth, jnp.zeros(6), deltas)
 
     def step(T, v):
-        T_next = se3_exp(v) @ T
+        T_next = matmul(se3_exp(v), T)
         return T_next, T_next
 
     T0 = jnp.eye(4)

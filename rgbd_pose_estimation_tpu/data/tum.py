@@ -5,8 +5,9 @@ loader"): ``rgb.txt``/``depth.txt`` timestamp association (greedy nearest
 match, the benchmark's ``associate.py`` behavior), 16-bit PNG depth divided
 by 5000 to meters, optional ``groundtruth.txt`` poses.
 
-Host-side I/O uses OpenCV (as the reference does); arrays leave this module
-as float32 numpy ready for ``jax.device_put``. ``write_synthetic_tum``
+Host-side decode is the native C++ core (data/native_loader.py) with the
+stdlib PNG codec (data/png.py) as its fallback; arrays leave this module as
+float32 numpy ready for ``jax.device_put``. ``write_synthetic_tum``
 renders the analytic test scene into a real TUM-format directory — PNGs,
 association files, groundtruth — so loader and full-sequence pipelines are
 testable hermetically (no network, SURVEY.md §0).
@@ -63,8 +64,8 @@ class TumSequence:
         meters)``; invalid depth is 0.
 
         Decoding uses the native C++ core (data/native_loader.py — the
-        reference's OpenCV-C++-loader equivalent) with a transparent cv2
-        fallback.
+        reference's OpenCV-C++-loader equivalent) with a transparent
+        pure-Python PNG fallback.
         """
         from rgbd_pose_estimation_tpu.data.native_loader import (
             decode_depth16,
@@ -100,12 +101,11 @@ def write_synthetic_tum(
     Returns the CameraIntrinsics used. PNG depth is 16-bit / 5000, intensity
     is replicated to 8-bit RGB — byte-identical format to real TUM data.
     """
-    import cv2
-
     import jax
     import jax.numpy as jnp
 
     from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics
+    from rgbd_pose_estimation_tpu.data.png import write_png
     from rgbd_pose_estimation_tpu.data.synthetic import synthetic_sequence
     from rgbd_pose_estimation_tpu.eval.traj_io import write_tum_trajectory
 
@@ -123,11 +123,11 @@ def write_synthetic_tum(
         gray8 = np.asarray(
             jnp.clip(intensities[i] * 255.0, 0, 255).astype(jnp.uint8)
         )
-        cv2.imwrite(os.path.join(root, "rgb", name), cv2.cvtColor(gray8, cv2.COLOR_GRAY2BGR))
+        write_png(os.path.join(root, "rgb", name), np.repeat(gray8[..., None], 3, -1))
         d16 = np.asarray(
             jnp.clip(depths[i] * 5000.0, 0, 65535).astype(jnp.uint16)
         )
-        cv2.imwrite(os.path.join(root, "depth", name), d16)
+        write_png(os.path.join(root, "depth", name), d16)
         rgb_lines.append(f"{ts[i]:.6f} rgb/{name}")
         depth_lines.append(f"{ts[i]:.6f} depth/{name}")
     with open(os.path.join(root, "rgb.txt"), "w") as f:

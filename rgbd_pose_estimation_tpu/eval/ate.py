@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from rgbd_pose_estimation_tpu.solvers.absolute_orientation import umeyama
-from rgbd_pose_estimation_tpu.core.lie import matrix_to_rt, se3_inverse
+from rgbd_pose_estimation_tpu.core.lie import matmul, matrix_to_rt, se3_inverse
 
 
 def align_umeyama(est_xyz, gt_xyz, with_scale: bool = False):
@@ -46,9 +46,9 @@ def rpe(est_poses, gt_poses, delta: int = 1):
     est = jnp.asarray(est_poses, jnp.float32)
     gt = jnp.asarray(gt_poses, jnp.float32)
     # Relative motions i -> i+delta in each trajectory.
-    e_rel = est[delta:] @ se3_inverse(est[:-delta])
-    g_rel = gt[delta:] @ se3_inverse(gt[:-delta])
-    err = se3_inverse(g_rel) @ e_rel
+    e_rel = matmul(est[delta:], se3_inverse(est[:-delta]))
+    g_rel = matmul(gt[delta:], se3_inverse(gt[:-delta]))
+    err = matmul(se3_inverse(g_rel), e_rel)
     R, t = matrix_to_rt(err)
     t_err = np.asarray(jnp.linalg.norm(t, axis=-1), np.float64)
     cos = np.clip(

@@ -1,4 +1,4 @@
-"""Aggregate metrics JSONL files into the BASELINE.md measurement table.
+"""Aggregate metrics JSONL files into the per-config measurement table.
 
 SURVEY.md §6 "measurement plan": one row per driver config, filled from the
 JSONL records the pipelines emit (utils/metrics.py). Usable as a module or

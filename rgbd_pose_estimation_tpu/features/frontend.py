@@ -26,8 +26,15 @@ def detect_orb(gray: np.ndarray, max_features: int = 512):
 
     Args: ``gray`` float32 (H, W) in [0,1]. Returns ``(uv (M, 2) f32,
     desc (M, 32) u8, valid (M,) bool)`` padded to ``max_features``.
+    Needs OpenCV; ``detector="tpu"`` (features/tpu_detect.py) does not.
     """
-    import cv2
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "the 'orb' detector needs OpenCV (cv2), which is not installed; "
+            "use the on-device detector instead (--detector tpu)"
+        ) from e
 
     img8 = (np.clip(np.asarray(gray), 0, 1) * 255).astype(np.uint8)
     orb = cv2.ORB_create(nfeatures=max_features)

@@ -28,6 +28,8 @@ import jax
 import jax.numpy as jnp
 
 from rgbd_pose_estimation_tpu.core.lie import (
+    HIGHEST,
+    matmul,
     se3_adjoint,
     se3_exp,
     se3_inverse,
@@ -47,12 +49,12 @@ def _edge_terms(T, edges_i, edges_j, T_meas_inv, weights):
     """
     Ti = T[edges_i]  # (E, 4, 4)
     Tj = T[edges_j]
-    M = T_meas_inv @ Ti @ se3_inverse(Tj)
+    M = matmul(matmul(T_meas_inv, Ti), se3_inverse(Tj))
     r = se3_log(M)  # (E, 6)
     A = se3_adjoint(Tj)  # (E, 6, 6)
     w = weights[:, None, None]
-    AtA = jnp.einsum("eki,ekj->eij", A, A) * w
-    Atr = jnp.einsum("eki,ek->ei", A, r) * weights[:, None]
+    AtA = jnp.einsum("eki,ekj->eij", A, A, precision=HIGHEST) * w
+    Atr = jnp.einsum("eki,ek->ei", A, r, precision=HIGHEST) * weights[:, None]
     return r, AtA, Atr
 
 
@@ -102,14 +104,14 @@ def _solve_pcg(K, edges_i, edges_j, AtA, b, damping, pcg_iters, dtype):
 
     def matvec(x):  # (K, 6) → (K, 6)
         d = x[edges_i] - x[edges_j]
-        yd = jnp.einsum("eij,ej->ei", AtA, d)
+        yd = jnp.einsum("eij,ej->ei", AtA, d, precision=HIGHEST)
         y = jnp.zeros_like(x).at[edges_i].add(yd).at[edges_j].add(-yd)
         y = y + damping * x
         return y.at[0].add(_GAUGE_W * x[0])
 
     rhs = -b
     x0 = jnp.zeros_like(rhs)
-    z0 = jnp.einsum("kij,kj->ki", Minv, rhs)
+    z0 = jnp.einsum("kij,kj->ki", Minv, rhs, precision=HIGHEST)
 
     def body(carry, _):
         x, rr, z, p = carry
@@ -118,7 +120,7 @@ def _solve_pcg(K, edges_i, edges_j, AtA, b, damping, pcg_iters, dtype):
         alpha = rz / jnp.maximum(jnp.sum(p * Ap), 1e-20)
         x = x + alpha * p
         rr_new = rr - alpha * Ap
-        z_new = jnp.einsum("kij,kj->ki", Minv, rr_new)
+        z_new = jnp.einsum("kij,kj->ki", Minv, rr_new, precision=HIGHEST)
         beta = jnp.sum(rr_new * z_new) / jnp.maximum(rz, 1e-20)
         p = z_new + beta * p
         return (x, rr_new, z_new, p), None
@@ -165,7 +167,7 @@ def optimize_pose_graph(
                 K, edges_i, edges_j, AtA, b, cfg.damping, cfg.pcg_iters,
                 poses.dtype,
             )
-        T_new = T @ se3_exp(delta)
+        T_new = matmul(T, se3_exp(delta))
         cost = jnp.sum(weights * jnp.sum(r * r, axis=-1))
         return T_new, cost
 

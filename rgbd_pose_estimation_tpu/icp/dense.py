@@ -9,9 +9,9 @@ GN iteration; here each iteration is three fused device stages —
    the projected pixels (the one gather, kept in XLA — SURVEY.md hard-part
    #4), gate by distance / normal-agreement / depth validity, weight by a
    Huber robust kernel;
-3. accumulate: the fused Pallas kernel (ops/icp_jtj.py) reduces the
-   point-to-plane normal equations on-chip; a 6x6 LM-damped solve and an
-   SE(3) retraction finish the iteration.
+3. accumulate: ops/icp_jtj.py reduces the point-to-plane normal equations
+   on the device; a 6x6 LM-damped solve and an SE(3) retraction finish the
+   iteration.
 
 The pyramid is coarse-to-fine; iterations per level are static
 (``lax.scan``), so a whole multi-level track compiles to one XLA program
@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics
-from rgbd_pose_estimation_tpu.core.lie import se3_exp
+from rgbd_pose_estimation_tpu.core.lie import HIGHEST, matmul, se3_exp
 from rgbd_pose_estimation_tpu.data.geometry import (
     bilinear_sample,
     build_pyramid,
@@ -36,7 +36,7 @@ from rgbd_pose_estimation_tpu.data.geometry import (
     normal_map,
     vertex_map,
 )
-from rgbd_pose_estimation_tpu.ops.icp_jtj import icp_jtj_jtr, pack_icp_data
+from rgbd_pose_estimation_tpu.ops.icp_jtj import icp_jtj_jtr
 from rgbd_pose_estimation_tpu.utils.config import IcpConfig
 
 
@@ -97,15 +97,15 @@ def _level_iteration(
     With ``cfg.photometric_weight > 0`` and photo maps present, a DVO-style
     intensity residual r_I = I_tgt(π(Tp)) − I_src rides alongside point-to-
     plane. Its Jacobian has the same [a; p×a] structure with a = ∇I·dπ/dp,
-    so BOTH residuals accumulate through the one fused JtJ kernel: the
-    photometric rows are packed as (p, q_virtual, a, w) with q_virtual
-    chosen so the kernel's n·(p−q) reproduces r_I exactly.
+    so BOTH residuals accumulate through the one JtJ reduction: the
+    photometric rows enter as (p, q_virtual, a, w) with q_virtual chosen
+    so the reduction's n·(p−q) reproduces r_I exactly.
     """
 
     stride = cfg.source_stride[level] if level < len(cfg.source_stride) else 1
     if stride > 1:
-        # Thin the residual sample (gather-index count drops stride^2-fold;
-        # the gather unit is index-rate-bound — see IcpConfig.source_stride).
+        # Thin the residual sample (stride^2 fewer gathered pixels; see
+        # IcpConfig.source_stride).
         src_v = src_v[::stride, ::stride]
         src_n = src_n[::stride, ::stride]
         if src_ph is not None:
@@ -124,8 +124,7 @@ def _level_iteration(
             "photometric term requires association='nearest'"
         )
 
-    # TPU gathers are index-rate-bound (payload width is nearly free), so
-    # for nearest association pack everything the step needs — vertex,
+    # For nearest association, pack everything the step needs — vertex,
     # normal, and optionally intensity+gradient — into ONE flat map and
     # gather it once per iteration instead of five times (4 bilinear
     # vertex taps + normals).
@@ -143,17 +142,16 @@ def _level_iteration(
     # elementwise math — standard ICP alternation allows several minimize
     # steps per association. The fresh/stale choice is made at TRACE time
     # (``assoc=None`` → re-gather): an earlier lax.cond formulation lowered
-    # to a select that executed BOTH branches, so k>1 bought no time at all
-    # (BASELINE.md "Measured — rounds 3+4", first reassoc experiment);
-    # icp_track unrolls the k-pattern statically instead.
+    # to a select that executed BOTH branches, so k>1 bought no time at
+    # all; icp_track unrolls the k-pattern statically instead.
 
     def step(T, assoc=None):
         """One GN iteration. ``assoc=None`` performs fresh association (the
         gather); passing the previous step's ``assoc`` reuses it — a purely
         static (trace-time) decision. Returns ``(T_new, stats, assoc)``."""
         R, t = T[:3, :3], T[:3, 3]
-        p = sv @ R.T + t  # source vertices in target frame
-        n_src = sn @ R.T
+        p = jnp.dot(sv, R.T, precision=HIGHEST) + t  # target frame
+        n_src = jnp.dot(sn, R.T, precision=HIGHEST)
 
         z = jnp.maximum(p[:, 2], 1e-6)
         u = cam_l.fx * p[:, 0] / z + cam_l.cx
@@ -194,7 +192,7 @@ def _level_iteration(
         absr = jnp.abs(r)
         w_rob = jnp.where(absr <= cfg.huber_delta, 1.0, cfg.huber_delta / jnp.maximum(absr, 1e-12))
         w = jnp.where(valid, w_rob, 0.0)
-        data = pack_icp_data(p, q, nt, w)
+        data = (p, q, nt, w)
 
         if use_photo:
             # First-order subpixel correction of the nearest-gathered
@@ -225,13 +223,15 @@ def _level_iteration(
                 cfg.photo_huber / jnp.maximum(abri, 1e-12),
             )
             w_ph = jnp.where(valid_ph, w_ph * cfg.photometric_weight, 0.0)
-            # Virtual target point: the kernel computes n·(p − q), so pick
-            # q_virt with a·(p − q_virt) = r_I.
+            # Virtual target point: the reduction computes n·(p − q), so
+            # pick q_virt with a·(p − q_virt) = r_I.
             q_virt = p - (r_i / jnp.maximum(a2, 1e-8))[:, None] * a
-            data_ph = pack_icp_data(p, q_virt, a, w_ph)
-            data = jnp.concatenate([data, data_ph], axis=1)
+            data_ph = (p, q_virt, a, w_ph)
+            data = tuple(
+                jnp.concatenate([x, y]) for x, y in zip(data, data_ph)
+            )
 
-        JtJ, Jtr, err, wsum_all = icp_jtj_jtr(data)
+        JtJ, Jtr, err, wsum_all = icp_jtj_jtr(*data)
         # Overlap bookkeeping stays GEOMETRIC-only (keyframe policy signal).
         wsum = jnp.sum(w) if use_photo else wsum_all
 
@@ -240,7 +240,7 @@ def _level_iteration(
         ok = wsum > 50.0
         delta = jnp.linalg.solve(H, -Jtr[:, None])[:, 0]
         delta = jnp.where(ok, delta, jnp.zeros(6, dtype=delta.dtype))
-        T_new = se3_exp(delta) @ T
+        T_new = matmul(se3_exp(delta), T)
         stats = jnp.stack([err, wsum])
         return T_new, stats, assoc
 

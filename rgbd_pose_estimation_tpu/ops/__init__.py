@@ -1,11 +1,6 @@
-from rgbd_pose_estimation_tpu.ops.moments import (
-    minimal_moments,
-    minimal_moments_reference,
-)
 from rgbd_pose_estimation_tpu.ops.ransac_score import (
     best_pose_3d3d,
     score_poses_3d3d,
-    score_poses_3d3d_quad,
     score_poses_3d3d_reference,
     score_poses_2d3d,
     score_poses_2d3d_reference,
@@ -16,11 +11,8 @@ from rgbd_pose_estimation_tpu.ops.icp_jtj import (
 )
 
 __all__ = [
-    "minimal_moments",
-    "minimal_moments_reference",
     "best_pose_3d3d",
     "score_poses_3d3d",
-    "score_poses_3d3d_quad",
     "score_poses_3d3d_reference",
     "score_poses_2d3d",
     "score_poses_2d3d_reference",

@@ -1,7 +1,6 @@
-"""Fused point-to-plane JtJ/Jtr accumulation — the dense-ICP hot loop.
+"""Point-to-plane JtJ/Jtr accumulation: the dense-ICP reduction.
 
-HOT LOOP #2 (SURVEY.md §3.2) and the second north-star kernel ("on-chip
-JtJ/Jtr accumulation"). Given per-pixel associated data (source points
+Hot loop #2 (SURVEY.md §3.2). Given per-pixel associated data (source points
 already transformed into the target camera frame, gathered target
 points/normals, robust weights), accumulate the 6x6 Gauss-Newton normal
 equations for the point-to-plane residual
@@ -11,199 +10,50 @@ equations for the point-to-plane residual
 Augmented-Jacobian trick: append the residual and a constant-1 column to J;
 the symmetric 8x8 product of the weighted J then yields *everything* —
 ``A[:6,:6] = JtJ``, ``A[:6, 6] = Jtr``, ``A[6, 6] = Σ w r²``, ``A[7, 7] =
-Σ w`` — without ever materializing the (M, 8) Jacobian in HBM.
+Σ w``.
 
-Two on-chip formulations (selected by ``impl``; parity-tested against the
-jnp twin):
+The reduction is plain jnp: the 64 products ``(w J)_i J_j`` summed over
+pixels in f32 — one column reduction that XLA fuses with the Jacobian's
+construction, so the ``(M, 8)`` Jacobian never reaches device memory. It
+has no matrix product, so no TF32 rounding either. (On the H100 this form
+beat a Pallas-Triton block reduction and an f32 einsum; see PERF.md.)
 
-- ``"vpu"`` (default): per tile, build the 8 augmented-J rows as (st, 128)
-  vregs and accumulate the 36 upper-triangle pairwise products into a
-  (40, 128) lane-partial accumulator with sublane-only reductions — no
-  cross-lane relayouts, no MXU. ~87 VPU flops/pixel against a 40 B/pixel
-  HBM read ⇒ arithmetic intensity ~2.2 flop/B, i.e. HBM-bandwidth-bound;
-  the roofline audit (tools/roofline.py, BASELINE.md) measures how close
-  it runs to the stream ceiling.
-- ``"mxu"``: flatten the 8 rows to (8, st·128) and take one
-  ``dot_general`` per tile. Uses 8x8 of the 128x128 systolic array
-  (≤0.4% MXU) and pays a sublane→lane relayout per row; kept as the
-  measured-alternative baseline.
-
-Input layout: ``data`` is ``(10, S, 128)`` — rows are px,py,pz, qx,qy,qz,
-nx,ny,nz, w with the pixel index folded into (S, 128) so the lane axis is
-always full. ``pack_icp_data`` pads the pixel count with w=0 rows to a
-multiple of 64·128 so the kernel always runs its full 64-sublane tile
-(S % 64 == 0; a non-multiple S from an external packer falls back to an
-8-sublane tile).
+:func:`icp_jtj_jtr_reference` is the einsum form at ``HIGHEST`` precision.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-_ST = 64  # sublane tile: 64 rows x 128 lanes = 8192 pixels per grid step
-_NPAIR = 36  # upper triangle of the symmetric augmented 8x8
-_ACC_ROWS = 40  # _NPAIR padded up to a sublane multiple of 8
+from rgbd_pose_estimation_tpu.core.lie import HIGHEST
 
 
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
+def _jacobian(p, q, n):
+    """(M, 8) augmented Jacobian [n, p × n, r, 1] from (M, 3) points,
+    targets and normals."""
+    r = jnp.sum(n * (p - q), axis=-1, keepdims=True)
+    return jnp.concatenate([n, jnp.cross(p, n), r, jnp.ones_like(r)], axis=-1)
 
 
-def pack_icp_data(p, q, n, w):
-    """``(M, 3)`` x3 + ``(M,)`` → ``(10, S, 128)`` padded kernel layout."""
-    M = p.shape[0]
-    cols = _ST * pl.cdiv(M, _ST * 128)  # rows of 128, multiple of 64
-    pad = cols * 128 - M
-
-    def prep(x):
-        x = jnp.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1))
-        return x
-
-    p, q, n, w = prep(p), prep(q), prep(n), prep(w)
-    rows = [p[:, 0], p[:, 1], p[:, 2], q[:, 0], q[:, 1], q[:, 2],
-            n[:, 0], n[:, 1], n[:, 2], w]
-    data = jnp.stack(rows, axis=0).reshape(10, cols, 128)
-    return data
+def _split(A):
+    return A[:6, :6], A[:6, 6], A[6, 6], A[7, 7]
 
 
-def _aug_rows(data_ref):
-    """The 8 augmented-Jacobian rows and the weight, as (st, 128) arrays."""
-    px, py, pz = data_ref[0], data_ref[1], data_ref[2]
-    qx, qy, qz = data_ref[3], data_ref[4], data_ref[5]
-    nx, ny, nz = data_ref[6], data_ref[7], data_ref[8]
-    w = data_ref[9]
-    # J rows: translation part = n, rotation part = p x n, then r, then 1.
-    j3 = py * nz - pz * ny
-    j4 = pz * nx - px * nz
-    j5 = px * ny - py * nx
-    r = nx * (px - qx) + ny * (py - qy) + nz * (pz - qz)
-    one = jnp.ones_like(w)
-    return [nx, ny, nz, j3, j4, j5, r, one], w
-
-
-def _jtj_kernel_vpu(data_ref, out_ref, acc_ref):
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        acc_ref[:, :] = jnp.zeros_like(acc_ref)
-
-    rows, w = _aug_rows(data_ref)
-    roww = [x * w for x in rows]
-    partials = []
-    for i in range(8):
-        for j in range(i, 8):
-            # (st, 128)·(st, 128) product, reduced over sublanes only:
-            # lane partials stay in-register, no cross-lane traffic.
-            partials.append(jnp.sum(roww[i] * rows[j], axis=0))
-    pad = [jnp.zeros_like(partials[0])] * (_ACC_ROWS - _NPAIR)
-    acc_ref[:, :] += jnp.stack(partials + pad, axis=0)
-
-    @pl.when(pl.program_id(0) == pl.num_programs(0) - 1)
-    def _():
-        out_ref[:, :] = acc_ref[:, :]
-
-
-def _jtj_kernel_mxu(data_ref, out_ref, acc_ref):
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        acc_ref[:, :] = jnp.zeros_like(acc_ref)
-
-    rows, w = _aug_rows(data_ref)
-    st, lanes = w.shape
-    flat = [x.reshape(1, st * lanes) for x in rows]
-    J = jnp.concatenate(flat, axis=0)  # (8, L)
-    Jw = J * w.reshape(1, st * lanes)
-    acc_ref[:, :8] += jax.lax.dot_general(
-        Jw,
-        J,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(pl.program_id(0) == pl.num_programs(0) - 1)
-    def _():
-        out_ref[:, :] = acc_ref[:, :]
-
-
-def _unpack_sym8(s):
-    """(36,) upper-triangle sums → symmetric (8, 8)."""
-    iu = jnp.triu_indices(8)
-    A = jnp.zeros((8, 8), s.dtype).at[iu].set(s)
-    return A + A.T - jnp.diag(jnp.diag(A))
-
-
-@functools.partial(jax.jit, static_argnames=("impl",))
-def icp_jtj_jtr(data: jnp.ndarray, impl: str = "auto"):
+@jax.jit
+def icp_jtj_jtr(p, q, n, w):
     """Accumulate the weighted point-to-plane normal equations.
 
-    Args: ``data`` ``(10, S, 128)`` from :func:`pack_icp_data`; ``impl`` is
-    "auto" (Pallas-VPU on TPU, jnp elsewhere), "vpu", "mxu", "reference",
-    or "interpret" (VPU kernel under the Pallas interpreter).
-    Returns ``(JtJ (6,6), Jtr (6,), err_sum, weight_sum)``.
+    Args: ``p``, ``q``, ``n`` ``(M, 3)`` and ``w`` ``(M,)``; rows with
+    ``w = 0`` contribute nothing. Returns ``(JtJ (6,6), Jtr (6,), err_sum,
+    weight_sum)``.
     """
-    if impl == "reference" or (impl == "auto" and not _use_pallas()):
-        return icp_jtj_jtr_reference(data)
-    S = data.shape[1]
-    st = _ST if S % _ST == 0 else 8
-    assert S % st == 0, (S, st)
-    if impl == "mxu":
-        A = pl.pallas_call(
-            _jtj_kernel_mxu,
-            grid=(S // st,),
-            in_specs=[
-                pl.BlockSpec(
-                    (10, st, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-                )
-            ],
-            out_specs=pl.BlockSpec((8, 128), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((8, 128), jnp.float32)],
-            cost_estimate=pl.CostEstimate(
-                flops=150 * S * 128,
-                bytes_accessed=data.size * 4,
-                transcendentals=0,
-            ),
-        )(data)
-        A = A[:, :8]
-    else:
-        partials = pl.pallas_call(
-            _jtj_kernel_vpu,
-            grid=(S // st,),
-            in_specs=[
-                pl.BlockSpec(
-                    (10, st, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-                )
-            ],
-            out_specs=pl.BlockSpec(
-                (_ACC_ROWS, 128), lambda i: (0, 0), memory_space=pltpu.VMEM
-            ),
-            out_shape=jax.ShapeDtypeStruct((_ACC_ROWS, 128), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((_ACC_ROWS, 128), jnp.float32)],
-            cost_estimate=pl.CostEstimate(
-                flops=87 * S * 128,
-                bytes_accessed=data.size * 4,
-                transcendentals=0,
-            ),
-            interpret=impl == "interpret",
-        )(data)
-        A = _unpack_sym8(jnp.sum(partials[:_NPAIR], axis=1))
-    return A[:6, :6], A[:6, 6], A[6, 6], A[7, 7]
+    J = _jacobian(p, q, n)
+    return _split(jnp.sum((J * w[:, None])[:, :, None] * J[:, None, :], axis=0))
 
 
-def icp_jtj_jtr_reference(data: jnp.ndarray):
-    """jnp twin of :func:`icp_jtj_jtr` (oracle + non-TPU fallback)."""
-    d = data.reshape(10, -1)
-    p = d[0:3].T
-    q = d[3:6].T
-    n = d[6:9].T
-    w = d[9]
-    j_rot = jnp.cross(p, n)
-    r = jnp.sum(n * (p - q), axis=-1)
-    one = jnp.ones_like(w)
-    J = jnp.concatenate([n, j_rot, r[:, None], one[:, None]], axis=-1)  # (M, 8)
-    A = jnp.einsum("mi,mj->ij", J * w[:, None], J)
-    return A[:6, :6], A[:6, 6], A[6, 6], A[7, 7]
+def icp_jtj_jtr_reference(p, q, n, w):
+    """Oracle for :func:`icp_jtj_jtr`: ``(wJ)ᵀJ`` as an einsum at HIGHEST."""
+    J = _jacobian(p, q, n)
+    A = jnp.einsum("mi,mj->ij", J * w[:, None], J, precision=HIGHEST)
+    return _split(A)

@@ -1,27 +1,21 @@
-"""Pallas TPU kernels for massively parallel RANSAC hypothesis scoring.
+"""RANSAC hypothesis scoring: K poses against N correspondences at once.
 
-This is HOT LOOP #1 (SURVEY.md §3.1) and the north-star metric: ">1000 RANSAC
-hypotheses/frame scored in real time" — the reference scores hypotheses in a
-*serial* CPU loop with early exit; we score a K-sized batch of poses against
-all N correspondences at once.
+This is hot loop #1 (SURVEY.md §3.1): the reference scores hypotheses in a
+serial CPU loop with early exit; here a K-sized batch of poses is scored
+against all N correspondences and each pose reduces to an MSAC score
+``Σ min(e, τ²)`` and an inlier count ``Σ [e < τ²]``.
 
-Kernel layout (per SURVEY.md §2.1 "RANSAC engine"):
-- grid over K-tiles of hypotheses; the full correspondence set (laid out
-  ``(3, N)`` so N rides the 128-lane axis) stays resident in VMEM across all
-  grid steps;
-- each grid step broadcasts a ``(KT, 1)`` pose-component column against the
-  ``(1, N)`` point rows — pure VPU elementwise work on ``(KT, N)`` tiles —
-  and reduces to MSAC score + inlier count without ever materializing the
-  ``(K, N)`` residual matrix in HBM. HBM traffic is therefore
-  O(K·12 + N·6 + K·2) instead of O(K·N).
+The scorers are plain jnp: twelve ``(K, 1)`` pose columns broadcast
+against ``(1, N)`` point rows, then min/compare and a row sum. XLA fuses
+the elementwise chain into the row reduction, so the ``(K, N)`` residual
+matrix never reaches device memory. (On the H100 this form beat a
+Pallas-Triton kernel and a bf16 quadratic-form ranking; see PERF.md.)
 
-Every kernel has a jnp twin (``*_reference``) used as the correctness oracle
-in tests (SURVEY.md §4.4) and as the fallback path on non-TPU backends.
+``*_reference`` are independent einsum forms at ``HIGHEST`` precision that
+materialize ``(K, N, 3)``: the test oracles, never a production path.
 
-Padding contract: callers pad N to a multiple of 128 by appending points with
-``q = PAD_SENTINEL`` — those always land outside the inlier threshold, adding
-a constant to every hypothesis's MSAC score (ordering preserved) and nothing
-to inlier counts.
+Poses are ``(K, 4, 4)`` matrices or packed ``(K, 12)`` rows
+(:func:`pack_poses`). N needs no padding: every form handles any N.
 """
 
 from __future__ import annotations
@@ -30,15 +24,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-PAD_SENTINEL = 1e6
-_KT = 256  # hypothesis tile (sublane-friendly multiple of 8)
-
-
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
+from rgbd_pose_estimation_tpu.core.lie import HIGHEST
 
 
 def pack_poses(T: jnp.ndarray) -> jnp.ndarray:
@@ -58,365 +45,89 @@ def unpack_pose(row: jnp.ndarray) -> jnp.ndarray:
     )
 
 
+def _packed(T: jnp.ndarray) -> jnp.ndarray:
+    return T if T.ndim == 2 else pack_poses(T)
+
+
+def _rotate(c, x, y, z):
+    """``R p + t`` per component from 12 pose columns and point rows."""
+    return (
+        c[0] * x + c[1] * y + c[2] * z + c[9],
+        c[3] * x + c[4] * y + c[5] * z + c[10],
+        c[6] * x + c[7] * y + c[8] * z + c[11],
+    )
+
+
+def _msac_and_count(e, tau2):
+    return (
+        jnp.sum(jnp.minimum(e, tau2), axis=-1),
+        jnp.sum((e < tau2).astype(jnp.float32), axis=-1),
+    )
+
+
+def _residual_3d3d(c, p, q):
+    ex, ey, ez = _rotate(c, p[0], p[1], p[2])
+    ex, ey, ez = ex - q[0], ey - q[1], ez - q[2]
+    return ex * ex + ey * ey + ez * ez
+
+
+def _residual_2d3d(c, x, o, *, tau2):
+    cx, cy, cz = _rotate(c, x[0], x[1], x[2])
+    behind = cz < 1e-6
+    iz = 1.0 / jnp.where(behind, 1.0, cz)
+    du = cx * iz - o[0]
+    dv = cy * iz - o[1]
+    # Points behind the camera are outliers.
+    return jnp.where(behind, 4.0 * tau2, du * du + dv * dv)
+
+
+def _score(residual, T, pts, other, tau2):
+    P = _packed(T)
+    cols = [P[:, i : i + 1] for i in range(12)]  # (K, 1) each
+    rows_a = [pts[None, :, i] for i in range(3)]  # (1, N) each
+    rows_b = [other[None, :, i] for i in range(other.shape[1])]
+    return _msac_and_count(residual(cols, rows_a, rows_b), tau2)
+
+
 # --------------------------------------------------------------------------
 # 3D-3D scoring: residual = ||R p + t - q||
 # --------------------------------------------------------------------------
 
 
-def _score3d_kernel(poses_ref, p_ref, q_ref, msac_ref, count_ref, *, tau2):
-    px, py, pz = p_ref[0:1, :], p_ref[1:2, :], p_ref[2:3, :]
-    qx, qy, qz = q_ref[0:1, :], q_ref[1:2, :], q_ref[2:3, :]
-
-    def col(i):
-        return poses_ref[:, i : i + 1]  # (KT, 1)
-
-    ex = col(0) * px + col(1) * py + col(2) * pz + col(9) - qx
-    ey = col(3) * px + col(4) * py + col(5) * pz + col(10) - qy
-    ez = col(6) * px + col(7) * py + col(8) * pz + col(11) - qz
-    e = ex * ex + ey * ey + ez * ez  # (KT, N)
-    msac_ref[:, :] = jnp.sum(jnp.minimum(e, tau2), axis=1, keepdims=True)
-    count_ref[:, :] = jnp.sum(
-        (e < tau2).astype(jnp.float32), axis=1, keepdims=True
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("threshold", "impl"))
+@functools.partial(jax.jit, static_argnames=("threshold",))
 def score_poses_3d3d(
-    T: jnp.ndarray, p: jnp.ndarray, q: jnp.ndarray, threshold: float,
-    impl: str = "auto",
+    T: jnp.ndarray, p: jnp.ndarray, q: jnp.ndarray, threshold: float
 ):
     """Score K poses against N 3D-3D correspondences.
 
-    Args: T ``(K, 4, 4)``, p/q ``(N, 3)`` (N a multiple of 128; see padding
-    contract above). ``impl``: "auto" (Pallas on TPU, jnp elsewhere),
-    "reference", or "interpret" (Pallas interpreter — kernel parity tests on
-    CPU). Returns ``(msac_score, inlier_count)`` both ``(K,)`` f32.
+    Args: T ``(K, 4, 4)`` or ``(K, 12)``, p/q ``(N, 3)``. Returns
+    ``(msac_score, inlier_count)`` both ``(K,)`` f32.
     """
-    if impl == "reference" or (impl == "auto" and not _use_pallas()):
-        return score_poses_3d3d_reference(T, p, q, threshold)
-    K, N = T.shape[0], p.shape[0]
-    if impl == "auto" and (K % _KT != 0 or N % 128 != 0):
-        # Non-tileable shapes (odd user K) take the jnp twin — the kernel
-        # is an optimization, never load-bearing (SURVEY.md §4.4).
-        return score_poses_3d3d_reference(T, p, q, threshold)
-    assert K % _KT == 0 and N % 128 == 0, (K, N)
-    poses = pack_poses(T)
-    pT = p.T  # (3, N)
-    qT = q.T
-    kernel = functools.partial(_score3d_kernel, tau2=threshold * threshold)
-    msac, count = pl.pallas_call(
-        kernel,
-        grid=(K // _KT,),
-        in_specs=[
-            pl.BlockSpec((_KT, 12), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, N), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, N), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((_KT, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((_KT, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((K, 1), jnp.float32),
-            jax.ShapeDtypeStruct((K, 1), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=23 * K * N, bytes_accessed=4 * (12 * K + 6 * N + 2 * K), transcendentals=0
-        ),
-        interpret=impl == "interpret",
-    )(poses, pT, qT)
-    return msac[:, 0], count[:, 0]
+    return _score(_residual_3d3d, T, p, q, threshold * threshold)
 
 
-def score_poses_3d3d_reference(T, p, q, threshold: float, precision=None):
-    """jnp twin of :func:`score_poses_3d3d` (oracle + non-TPU fallback).
-
-    NOTE: on TPU the einsum lowers to a DEFAULT-precision (bf16) MXU
-    matmul — measured up to ~2% score error vs the f32 Pallas kernel.
-    Pass ``precision=jax.lax.Precision.HIGHEST`` when this function is the
-    oracle on TPU (CPU einsum is true f32 already).
-    """
-    R = T[:, :3, :3]
-    t = T[:, :3, 3]
-    pred = jnp.einsum("kij,nj->kni", R, p, precision=precision) + t[:, None, :]
+def score_poses_3d3d_reference(T, p, q, threshold: float):
+    """Oracle for :func:`score_poses_3d3d`: einsum at HIGHEST precision."""
+    P = _packed(T)
+    R = P[:, :9].reshape(-1, 3, 3)
+    t = P[:, 9:12]
+    pred = jnp.einsum("kij,nj->kni", R, p, precision=HIGHEST) + t[:, None, :]
     e = jnp.sum((pred - q[None]) ** 2, axis=-1)  # (K, N)
-    tau2 = threshold * threshold
-    msac = jnp.sum(jnp.minimum(e, tau2), axis=-1)
-    count = jnp.sum((e < tau2).astype(jnp.float32), axis=-1)
-    return msac, count
+    return _msac_and_count(e, threshold * threshold)
 
 
-# --------------------------------------------------------------------------
-# MXU fast path: MSAC via ONE (K,17)x(17,N) matmul (quadratic expansion)
-# --------------------------------------------------------------------------
+@functools.partial(jax.jit, static_argnames=("threshold", "return_pose"))
+def best_pose_3d3d(T, p, q, threshold: float, return_pose: bool = False):
+    """Select the best of K poses by MSAC score.
 
-
-def _quad_features(T: jnp.ndarray, p: jnp.ndarray, q: jnp.ndarray):
-    """Factor the squared 3D-3D residual into a 17-dim bilinear form.
-
-    For orthonormal R (|R p| = |p|):
-
-        e(k,n) = |R_k p_n + t_k - q_n|^2
-               = |p_n|^2 + |q_n|^2 + |t_k|^2
-                 + 2 t_k·(R_k p_n) - 2 (R_k p_n)·q_n - 2 t_k·q_n
-               = feat(k) · pn(n)
-
-    with feat(k) = [vec(R_k), 2 R_kᵀt_k, -2 t_k, |t_k|^2, 1]  (K, 17) and
-    pn(n) = [-2 q_n⊗p_n, p_n, q_n, 1, |p_n|^2+|q_n|^2]        (17, N).
-
-    The full (K, N) residual matrix then rides the MXU as a single matmul
-    instead of a ~19-op/element VPU chain — measured ~5x faster than the
-    Pallas VPU kernel at the bench shape (BASELINE.md "Measured — rounds
-    3+4", MSAC kernel-variant shootout).
+    NaN scores (degenerate minimal sets) rank last. Returns
+    ``(best_index, best_msac)``, plus the winning ``(4, 4)`` pose when
+    ``return_pose=True``.
     """
-    K, N = T.shape[0], p.shape[0]
-    R = T[:, :3, :3]
-    t = T[:, :3, 3]
-    feat = jnp.concatenate(
-        [
-            R.reshape(K, 9),
-            2.0 * jnp.einsum("kij,ki->kj", R, t),
-            -2.0 * t,
-            jnp.sum(t * t, axis=-1, keepdims=True),
-            jnp.ones((K, 1), T.dtype),
-        ],
-        axis=-1,
-    )
-    qp = -2.0 * (q[:, :, None] * p[:, None, :]).reshape(N, 9)
-    pn = jnp.concatenate(
-        [
-            qp.T,
-            p.T,
-            q.T,
-            jnp.ones((1, N), p.dtype),
-            (jnp.sum(p * p, -1) + jnp.sum(q * q, -1))[None, :],
-        ],
-        axis=0,
-    )
-    return feat, pn
-
-
-def score_poses_3d3d_quad(T, p, q, threshold: float, precision=None,
-                          operand_dtype=None):
-    """Fast MSAC scores for ORTHONORMAL poses via the MXU quad form.
-
-    Returns the ``(K,)`` MSAC vector only (no inlier counts). With the
-    default (1-pass bf16) matmul precision the scores carry ~1e-2 relative
-    error (measured, tools/msac_opt.py) — ample for candidate RANKING but
-    not for exact parity; :func:`best_pose_3d3d` re-scores the top
-    candidates exactly before the final argmin. Conditioning: expansion
-    error grows as coord_scale^2 x bf16_eps, so keep |p|,|q| under ~10
-    scene units (TUM scenes are) or pass ``precision=HIGH``.
-
-    ``operand_dtype=jnp.bfloat16`` rounds the factored operands before the
-    dot — a faithful CPU emulation of the TPU's default bf16 MXU ingest,
-    used by the finalist-window stress test to reproduce the fast-score
-    error channel off-TPU.
-
-    NOTE (round-5 anatomy audit): XLA fuses the clip+reduce epilogue into
-    this dot on TPU — the (K, N) residual matrix is NOT materialized in
-    HBM, and this jnp form measures 101 us at K=32768, N=2048. The
-    hand-written Pallas twin (:func:`score_poses_3d3d_quad_fused`)
-    measured 147 us (its 128-step grid of 24-deep matmuls underutilizes
-    the MXU vs XLA's own tiling) and was therefore NOT adopted for
-    production; it remains as the measured alternative + parity fixture.
-    """
-    feat, pn = _quad_features(T, p, q)
-    if operand_dtype is not None:
-        feat = feat.astype(operand_dtype)
-        pn = pn.astype(operand_dtype)
-    e = jnp.dot(feat, pn, preferred_element_type=jnp.float32, precision=precision)
-    tau2 = threshold * threshold
-    # clip, not minimum: squared residuals are nonnegative by construction,
-    # but bf16 rounding of the expansion (~coord_scale^2 * 2^-8 absolute)
-    # can drive near-zero entries — and the ~1e4 pad sentinels — negative,
-    # which min(e, tau2) would inject into the ranking sum as spurious
-    # negative terms. The clamp is free on the VPU.
-    return jnp.sum(jnp.clip(e, 0.0, tau2), axis=1)
-
-
-def _quad_fused_kernel(feat_ref, pn_ref, msac_ref, *, tau2):
-    # feat: (KT, 24) f32, pn: (24, N) f32 — cast to bf16 at the MXU ingest
-    # (the same rounding the jnp twin's default-precision dot applies), dot
-    # with f32 accumulation, clip+reduce WITHOUT leaving VMEM.
-    f = feat_ref[:].astype(jnp.bfloat16)
-    m = pn_ref[:].astype(jnp.bfloat16)
-    e = jnp.dot(f, m, preferred_element_type=jnp.float32)  # (KT, N)
-    msac_ref[:, :] = jnp.sum(jnp.clip(e, 0.0, tau2), axis=1, keepdims=True)
-
-
-@functools.partial(jax.jit, static_argnames=("threshold", "impl"))
-def score_poses_3d3d_quad_fused(
-    T: jnp.ndarray, p: jnp.ndarray, q: jnp.ndarray, threshold: float,
-    impl: str = "auto",
-):
-    """Pallas MXU quad-form MSAC ranking with a fused clip+sum epilogue.
-
-    Same math as :func:`score_poses_3d3d_quad` (bf16-ingested MXU matmul of
-    the 17-feature bilinear form) with each (KT, N) tile reduced in VMEM.
-    MEASURED AND NOT ADOPTED (round-5, BASELINE.md): XLA already fuses the
-    jnp twin's epilogue (101 us at K=32768, N=2048) while this kernel's
-    128-step grid of 24-deep matmuls runs 147 us — the kernel is kept as
-    the measured alternative and a parity fixture, not the production
-    path. The real round-4 scorer wall was elsewhere: a (K, 4, 4)
-    row-gather layout tax (see :func:`best_pose_3d3d`'s layout rule). The
-    feature axis is zero-padded 17 → 24 for sublane alignment (zero
-    features add exactly nothing to the bilinear form). Requires
-    K % 256 == 0 and N % 128 == 0; other shapes (and non-TPU backends)
-    take the jnp twin.
-    """
-    K, N = T.shape[0], p.shape[0]
-    if impl == "reference" or (
-        impl == "auto" and not (_use_pallas() and K % _KT == 0 and N % 128 == 0)
-    ):
-        return score_poses_3d3d_quad(T, p, q, threshold)
-    feat, pn = _quad_features(T, p, q)
-    feat = jnp.pad(feat, ((0, 0), (0, 24 - feat.shape[1])))
-    pn = jnp.pad(pn, ((0, 24 - pn.shape[0]), (0, 0)))
-    kernel = functools.partial(
-        _quad_fused_kernel, tau2=threshold * threshold
-    )
-    msac = pl.pallas_call(
-        kernel,
-        grid=(K // _KT,),
-        in_specs=[
-            pl.BlockSpec((_KT, 24), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((24, N), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (_KT, 1), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((K, 1), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * 24 * K * N + 2 * K * N,
-            bytes_accessed=4 * (24 * K + 24 * N + K),
-            transcendentals=0,
-        ),
-        interpret=impl == "interpret",
-    )(feat, pn)
-    return msac[:, 0]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("threshold", "top", "impl", "selection", "return_pose"),
-)
-def best_pose_3d3d(
-    T: jnp.ndarray,
-    p: jnp.ndarray,
-    q: jnp.ndarray,
-    threshold: float,
-    top: int = 0,
-    impl: str = "auto",
-    selection: str = "group",
-    return_pose: bool = False,
-):
-    """Select the best of K poses: fast ranking pass + exact finalist pass.
-
-    Two-stage design (BASELINE.md "Measured — round 3" estimator anatomy):
-    all K hypotheses are ranked by the MXU quad form (XLA fuses the
-    clip+reduce epilogue into the matmul — measured 101 us at K=32768,
-    N=2048; the hand-written Pallas twin
-    :func:`score_poses_3d3d_quad_fused` measured 147 us and was NOT
-    adopted), then the ``top`` finalists are re-scored by the exact jnp
-    twin (``top``xN is negligible) and the final argmin is taken over
-    exact scores. The true winner is recovered whenever it survives
-    finalist ``selection`` under ~1e-2-relative fast scores; if more
-    near-ties exist than finalists they are interchangeable for the refit
-    that follows (the engine re-derives inliers from the winner exactly).
-
-    **Layout rule (round-5 anatomy finding, BASELINE.md):** rows of the
-    rank-3 ``(K, 4, 4)`` pose tensor are NEVER gathered here — any
-    row-gather consumer of ``T`` forces XLA to materialize the tensor in
-    its canonical tiled layout (4→8 x 4→128 padding), a measured ~540 us
-    tax at K=32768 that once dominated the whole scorer. Finalist poses
-    are instead reconstructed EXACTLY from rows of the (K, 17) quad
-    feature matrix (R is columns 0:9 verbatim; t = -0.5 x columns 12:15 —
-    both exact in f32), whose row-gather is ~18 us. ``return_pose=True``
-    additionally returns the winning (4, 4) pose from the same
-    reconstruction so callers need not gather ``T[best]`` themselves.
-
-    ``selection`` (round-4 verdict Weak #6 probe, measured on-chip:
-    top_k 21.1 us / approx_min_k 4.7 us / group_argmin 0.6 us at
-    K=32768):
-
-    - ``"group"`` (default) — reshape the (K,) fast scores into ``top``
-      contiguous groups and take one argmin per group: sort-free, always
-      contains the global fast argmin, and every finalist is within the
-      fast-score noise of the winner exactly when it matters (the
-      adversarial stress test passes the same post-refit contract as
-      top_k);
-    - ``"approx"`` — ``lax.approx_min_k`` (TPU bucketed top-k);
-    - ``"topk"`` — exact ``lax.top_k`` (also the fallback when K is not
-      divisible by ``top``).
-
-    ``top=0`` (default) scales the finalist window with K —
-    ``max(16, K // 1024)`` — so the exact re-score band widens as the
-    near-tie population grows at large K. Measured worst-case bound
-    (tests/kernels/test_ransac_score.py::test_finalist_window_adversarial,
-    hundreds of near-ties whose inlier sets differ on threshold-straddling
-    residuals): the PRE-refit pick can land ~3% above the exact-MSAC
-    optimum, but the near-tie band shares one refit basin, so the engine's
-    exact inlier refit erases the gap (refit poses agree to <1e-3).
-
-    NaN scores (degenerate minimal sets) rank last in both passes.
-    Returns ``(best_index, best_exact_msac)`` — plus the winning pose
-    when ``return_pose=True``. ``impl="exact"`` (and any non-TPU backend)
-    bypasses the fast pass entirely.
-    """
-    K = T.shape[0]
-    if top <= 0:
-        top = max(16, K // 1024)
-    top = min(top, K)
-    if impl == "exact" or (impl == "auto" and jax.default_backend() != "tpu"):
-        msac, _ = score_poses_3d3d(T, p, q, threshold, impl="auto")
-        msac = jnp.where(jnp.isnan(msac), jnp.inf, msac)
-        best = jnp.argmin(msac)
-        if return_pose:
-            return best, msac[best], T[best]
-        return best, msac[best]
-    # impl == "two_stage" forces the fast-rank + exact-finalist structure on
-    # any backend; off-TPU the fast operands are rounded to bf16 so the
-    # ranking carries the same ~1e-2 error channel as the TPU MXU ingest.
-    emulate = impl == "two_stage" and jax.default_backend() != "tpu"
-    feat, pn = _quad_features(T, p, q)
-    df, dm = (feat, pn) if not emulate else (
-        feat.astype(jnp.bfloat16), pn.astype(jnp.bfloat16)
-    )
-    e = jnp.dot(df, dm, preferred_element_type=jnp.float32)
-    tau2 = threshold * threshold
-    fast = jnp.sum(jnp.clip(e, 0.0, tau2), axis=1)
-    fast = jnp.where(jnp.isnan(fast), jnp.inf, fast)
-    if selection == "group" and K % top == 0:
-        g = fast.reshape(top, K // top)
-        cand = jnp.argmin(g, axis=1) + jnp.arange(top) * (K // top)
-    elif selection == "approx":
-        _, cand = jax.lax.approx_min_k(fast, top)
-    else:
-        _, cand = jax.lax.top_k(-fast, top)
-    # Finalist poses reconstructed EXACTLY from feat rows (see layout rule
-    # above): R = feat[:, :9] verbatim, t = -0.5 * feat[:, 12:15].
-    featc = feat[cand]
-    Rc = featc[:, :9].reshape(top, 3, 3)
-    tc = -0.5 * featc[:, 12:15]
-    # Finalists re-scored in true f32 (HIGHEST keeps the einsum off the
-    # bf16 MXU path; at top x N size the cost is negligible).
-    pred = (
-        jnp.einsum("kij,nj->kni", Rc, p, precision=jax.lax.Precision.HIGHEST)
-        + tc[:, None, :]
-    )
-    err = jnp.sum((pred - q[None]) ** 2, axis=-1)
-    exact = jnp.sum(jnp.minimum(err, tau2), axis=-1)
-    exact = jnp.where(jnp.isnan(exact), jnp.inf, exact)
-    j = jnp.argmin(exact)
-    if return_pose:
-        T_win = (
-            jnp.eye(4, dtype=T.dtype)
-            .at[:3, :3].set(Rc[j])
-            .at[:3, 3].set(tc[j])
-        )
-        return cand[j], exact[j], T_win
-    return cand[j], exact[j]
+    msac, _ = score_poses_3d3d(T, p, q, threshold)
+    msac = jnp.where(jnp.isnan(msac), jnp.inf, msac)
+    best = jnp.argmin(msac)
+    return (best, msac[best], T[best]) if return_pose else (best, msac[best])
 
 
 # --------------------------------------------------------------------------
@@ -424,91 +135,31 @@ def best_pose_3d3d(
 # --------------------------------------------------------------------------
 
 
-def _score2d_kernel(poses_ref, x_ref, o_ref, msac_ref, count_ref, *, tau2):
-    X, Y, Z = x_ref[0:1, :], x_ref[1:2, :], x_ref[2:3, :]
-    ou, ov = o_ref[0:1, :], o_ref[1:2, :]
-
-    def col(i):
-        return poses_ref[:, i : i + 1]
-
-    cx = col(0) * X + col(1) * Y + col(2) * Z + col(9)
-    cy = col(3) * X + col(4) * Y + col(5) * Z + col(10)
-    cz = col(6) * X + col(7) * Y + col(8) * Z + col(11)
-    behind = cz < 1e-6
-    iz = 1.0 / jnp.where(behind, 1.0, cz)
-    du = cx * iz - ou
-    dv = cy * iz - ov
-    e = du * du + dv * dv
-    e = jnp.where(behind, 4.0 * tau2, e)  # points behind camera: outliers
-    msac_ref[:, :] = jnp.sum(jnp.minimum(e, tau2), axis=1, keepdims=True)
-    count_ref[:, :] = jnp.sum(
-        (e < tau2).astype(jnp.float32), axis=1, keepdims=True
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("threshold", "impl"))
+@functools.partial(jax.jit, static_argnames=("threshold",))
 def score_poses_2d3d(
-    T: jnp.ndarray, points: jnp.ndarray, obs: jnp.ndarray, threshold: float,
-    impl: str = "auto",
+    T: jnp.ndarray, points: jnp.ndarray, obs: jnp.ndarray, threshold: float
 ):
     """Score K world→camera poses against N (3D point, normalized-2D) pairs.
 
-    Args: T ``(K, 4, 4)`` — or PACKED ``(K, 12)`` rows (``pack_poses``
-    layout), which callers with more than one pose consumer should prefer
-    (the round-5 layout rule: a second row-gather consumer of a rank-3
-    ``(K, 4, 4)`` tensor forces a ~64× padded canonical materialization;
-    2-D matrices are exempt). ``points`` ``(N, 3)``, ``obs`` ``(N, 2)``;
-    ``impl`` as in :func:`score_poses_3d3d`. Returns
-    ``(msac_score, inlier_count)`` both ``(K,)`` f32. Points behind the
-    camera are treated as outliers.
+    Args: T ``(K, 4, 4)`` or packed ``(K, 12)`` rows, ``points`` ``(N, 3)``,
+    ``obs`` ``(N, 2)``. Returns ``(msac_score, inlier_count)`` both
+    ``(K,)`` f32. Points behind the camera are treated as outliers.
     """
-    if impl == "reference" or (impl == "auto" and not _use_pallas()):
-        return score_poses_2d3d_reference(T, points, obs, threshold)
-    K, N = T.shape[0], points.shape[0]
-    if impl == "auto" and (K % _KT != 0 or N % 128 != 0):
-        return score_poses_2d3d_reference(T, points, obs, threshold)
-    assert K % _KT == 0 and N % 128 == 0, (K, N)
-    poses = T if T.ndim == 2 else pack_poses(T)
-    kernel = functools.partial(_score2d_kernel, tau2=threshold * threshold)
-    msac, count = pl.pallas_call(
-        kernel,
-        grid=(K // _KT,),
-        in_specs=[
-            pl.BlockSpec((_KT, 12), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, N), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, N), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((_KT, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((_KT, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((K, 1), jnp.float32),
-            jax.ShapeDtypeStruct((K, 1), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=26 * K * N, bytes_accessed=4 * (12 * K + 5 * N + 2 * K), transcendentals=0
-        ),
-        interpret=impl == "interpret",
-    )(poses, points.T, obs.T)
-    return msac[:, 0], count[:, 0]
+    tau2 = threshold * threshold
+    residual = functools.partial(_residual_2d3d, tau2=tau2)
+    return _score(residual, T, points, obs, tau2)
 
 
 def score_poses_2d3d_reference(T, points, obs, threshold: float):
-    """jnp twin of :func:`score_poses_2d3d` (accepts (K,4,4) or packed (K,12))."""
-    if T.ndim == 2:
-        R = T[:, :9].reshape(-1, 3, 3)
-        t = T[:, 9:12]
-    else:
-        R = T[:, :3, :3]
-        t = T[:, :3, 3]
-    Xc = jnp.einsum("kij,nj->kni", R, points) + t[:, None, :]
+    """Oracle for :func:`score_poses_2d3d`: einsum at HIGHEST precision."""
+    P = _packed(T)
+    R = P[:, :9].reshape(-1, 3, 3)
+    t = P[:, 9:12]
+    Xc = jnp.einsum("kij,nj->kni", R, points, precision=HIGHEST) + t[:, None, :]
     z = Xc[..., 2]
     behind = z < 1e-6
     proj = Xc[..., :2] / jnp.where(behind, 1.0, z)[..., None]
     e = jnp.sum((proj - obs[None]) ** 2, axis=-1)
     tau2 = threshold * threshold
     e = jnp.where(behind, 4.0 * tau2, e)
-    msac = jnp.sum(jnp.minimum(e, tau2), axis=-1)
-    count = jnp.sum((e < tau2).astype(jnp.float32), axis=-1)
-    return msac, count
+    return _msac_and_count(e, tau2)

@@ -6,8 +6,8 @@ at the documented reduction points — the distributed results are therefore
 bit-comparable to single-device runs (the test strategy of SURVEY.md §4.3:
 "distributed = same numbers as single-device").
 
-ICI vs DCN: intra-host reductions ride ICI automatically; the same code
-spans hosts (DCN) when the mesh does. Nothing here opens a socket.
+Collectives are XLA's (NCCL on GPUs); the same code spans hosts when the
+mesh does. Nothing here opens a socket.
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ def score_poses_3d3d_sharded(mesh: Mesh, T, p, q, threshold: float):
     """DP RANSAC scoring: K hypotheses sharded over every device.
 
     Correspondences are replicated (they are small); each device scores its
-    K/n slice with the local Pallas kernel; results concatenate back along
-    K. Combining is argmin on the host side of the jit — a pure data-
-    parallel axis (SURVEY.md §2.2 DP row).
+    K/n slice with the local scorer; results concatenate back along K.
+    Combining is argmin on the host side of the jit — a pure data-parallel
+    axis (SURVEY.md §2.2 DP row).
     """
     sl = SpecLayout.for_mesh(mesh)
 
@@ -46,18 +46,19 @@ def score_poses_3d3d_sharded(mesh: Mesh, T, p, q, threshold: float):
     return f(T, p, q)
 
 
-def icp_jtj_sharded(mesh: Mesh, data):
+def icp_jtj_sharded(mesh: Mesh, p, q, n, w):
     """TP dense-ICP reduction: pixel blocks sharded, 6x6 psum'd.
 
     The reduction payload is a 6x6+6 — trivially small — so scaling is
-    near-perfect (SURVEY.md §2.2 TP row). ``data`` is the (10, S, 128)
-    layout of ops/icp_jtj.py with S divisible by the mesh size.
+    near-perfect (SURVEY.md §2.2 TP row). ``p``, ``q``, ``n`` ``(M, 3)`` and
+    ``w`` ``(M,)`` as in ops/icp_jtj.py, with M divisible by the mesh size
+    (pad with w=0 rows).
     """
     axes = mesh.axis_names
     sl = SpecLayout.for_mesh(mesh)
 
-    def body(d):
-        JtJ, Jtr, err, wsum = icp_jtj_jtr(d)
+    def body(*d):
+        JtJ, Jtr, err, wsum = icp_jtj_jtr(*d)
         return (
             jax.lax.psum(JtJ, axes),
             jax.lax.psum(Jtr, axes),
@@ -68,10 +69,10 @@ def icp_jtj_sharded(mesh: Mesh, data):
     f = shard_map(
         body,
         mesh=mesh,
-        in_specs=(sl.pixel_rows(),),
+        in_specs=(sl.pixel_rows(),) * 4,
         out_specs=(P(), P(), P(), P()),
     )
-    return f(data)
+    return f(p, q, n, w)
 
 
 def ba_step_sharded(mesh: Mesh, prob: BAProblem, cfg: BAConfig):

@@ -48,8 +48,8 @@ class SpecLayout:
 
     # --- dense ICP (TP over pixel rows) ---
     def pixel_rows(self) -> P:
-        """(10, S, 128)-packed pixel data sharded by row block."""
-        return P(None, self.axes)
+        """Per-pixel (M, ...) data sharded by pixel block."""
+        return P(self.axes)
 
     # --- BA: observation-sharded layouts ---
     def observations(self) -> P:

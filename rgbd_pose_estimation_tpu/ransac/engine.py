@@ -3,8 +3,8 @@
 The central structural difference from the reference (SURVEY.md §3.1): the
 reference iterates hypotheses *serially* on the CPU with adaptive early
 exit; here a fixed batch of K hypotheses is generated by one vmapped minimal
-solver call, all K are scored against all N correspondences by the Pallas
-kernel (ops/ransac_score.py), and argmin + masked refit finish the job —
+solver call, all K are scored against all N correspondences at once
+(ops/ransac_score.py), and argmin + masked refit finish the job —
 static shapes throughout, so the whole estimator is a single compiled XLA
 program with no host round-trips.
 
@@ -26,14 +26,15 @@ import typing
 import jax
 import jax.numpy as jnp
 
+from rgbd_pose_estimation_tpu.core.lie import HIGHEST
 from rgbd_pose_estimation_tpu.ops.ransac_score import (
     best_pose_3d3d,
+    pack_poses,
     score_poses_2d3d,
+    unpack_pose,
 )
-from rgbd_pose_estimation_tpu.ops.moments import minimal_moments
 from rgbd_pose_estimation_tpu.ransac.prosac import sample_minimal_sets
 from rgbd_pose_estimation_tpu.solvers.absolute_orientation import (
-    horn_from_moments,
     horn_quaternion,
     kabsch,
 )
@@ -95,10 +96,6 @@ def pad_points_obs_2d3d(points, obs, n_target: int):
     return jnp.concatenate([points, pts_pad]), jnp.concatenate([obs, obs_pad])
 
 
-def _ceil128(n: int) -> int:
-    return ((n + 127) // 128) * 128
-
-
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def estimate_pose_3d3d(key, p, q, cfg: RansacConfig = RansacConfig()):
     """Robust rigid pose from N 3D-3D correspondences (q ≈ R p + t).
@@ -108,65 +105,18 @@ def estimate_pose_3d3d(key, p, q, cfg: RansacConfig = RansacConfig()):
     """
     N = p.shape[0]
     K = cfg.num_hypotheses
-    # Any K >= 1 works: the MXU fast-rank path handles arbitrary K, and the
-    # moments/score kernels fall back to their jnp twins on non-tileable
-    # shapes. Multiples of 256 stay on the fastest path.
-    m = cfg.sample_size
 
-    idx = sample_minimal_sets(key, N, K, m, cfg.prosac)  # (K, m)
-    p_pad, q_pad = pad_correspondences_3d3d(p, q, _ceil128(N))
-    if cfg.solver == "horn" and jax.default_backend() == "tpu":
-        # Gather-free hypothesize (ops/moments.py): per-sample Horn moments
-        # via fused one-hot MXU matmuls — the (K, m) row gather was the
-        # single largest stage of the estimate (628 us at K=32768,
-        # BASELINE.md "Measured — rounds 3+4" anatomy). idx only addresses
-        # rows < N, so the
-        # pad sentinels are never selected.
-        mom = minimal_moments(idx, p_pad, q_pad)
-        # iters=4: HYPOTHESES tolerate sloppy rotations — max deviation vs
-        # iters=12 measured 4.8e-4 (BASELINE.md rounds 3+4), far inside the
-        # MSAC threshold, and the winner is re-solved exactly from its
-        # inliers by the refit. 12 -> 4 iters saves ~40 us of the ~440 us
-        # estimate at K=32768. Non-hypothesis callers keep the default 12.
-        T = horn_from_moments(mom, iters=4)  # (K, 4, 4)
-    else:
-        pm = jnp.take(p, idx, axis=0)  # (K, m, 3)
-        qm = jnp.take(q, idx, axis=0)
-        solver = horn_quaternion if cfg.solver == "horn" else kabsch
-        T = solver(pm, qm)  # (K, 4, 4)
+    idx = sample_minimal_sets(key, N, K, cfg.sample_size, cfg.prosac)  # (K, m)
+    pm = jnp.take(p, idx, axis=0)  # (K, m, 3)
+    qm = jnp.take(q, idx, axis=0)
+    solver = horn_quaternion if cfg.solver == "horn" else kabsch
+    T = solver(pm, qm)  # (K, 4, 4)
 
-    # Score against the padded correspondence set (padding contract above).
-    # best_pose_3d3d: fast MXU ranking over all K + exact finalist
-    # re-score; NaN scores from degenerate minimal sets rank last in both
-    # passes. return_pose: the winner is reconstructed from the quad
-    # feature rows INSIDE the scorer — gathering T[best] here would be a
-    # second row-gather consumer of the (K, 4, 4) tensor, which forces its
-    # canonical tiled-layout materialization (measured ~540 us at K=32768;
-    # BASELINE.md round-5 layout rule).
+    # NaN scores from degenerate minimal sets rank last.
     best, best_score, T_best = best_pose_3d3d(
-        T, p_pad, q_pad, cfg.threshold, return_pose=True
+        T, p, q, cfg.threshold, return_pose=True
     )
-
-    # Iteratively-refit on hard inliers of the current model (static rounds).
-    def refit(T_cur, _):
-        e = jnp.sum((q - (p @ T_cur[:3, :3].T + T_cur[:3, 3])) ** 2, axis=-1)
-        w = (e < cfg.threshold**2).astype(p.dtype)
-        # Degenerate guard: with <3 inliers keep the current model.
-        enough = jnp.sum(w) >= 3
-        # Horn, not Kabsch: a single 3x3 SVD costs ~27 us on TPU (XLA
-        # QR-iteration loop) — x2 refit rounds that was up to half the
-        # K=4096 estimate. Horn's weighted quaternion power iteration is
-        # the same least-squares optimum, SVD-free (BASELINE.md "Measured —
-        # rounds 3+4", batched-small-SVD finding).
-        T_new = horn_quaternion(
-            p, q, weights=jnp.where(enough, w, jnp.ones_like(w))
-        )
-        return jnp.where(enough, T_new, T_cur), None
-
-    T_best, _ = jax.lax.scan(refit, T_best, None, length=cfg.refit_rounds)
-
-    e = jnp.sum((q - (p @ T_best[:3, :3].T + T_best[:3, 3])) ** 2, axis=-1)
-    inliers = e < cfg.threshold**2
+    T_best, inliers = _refit_3d3d(T_best, p, q, cfg)
     num = jnp.sum(inliers.astype(jnp.float32))
     return RansacResult(
         pose=T_best,
@@ -176,6 +126,33 @@ def estimate_pose_3d3d(key, p, q, cfg: RansacConfig = RansacConfig()):
         valid=num >= cfg.min_inliers,
         num_hypotheses=K,
     )
+
+
+def _transform(p, T):
+    """``R p + t`` for (N, 3) points, at full f32 precision."""
+    return jnp.dot(p, T[:3, :3].T, precision=HIGHEST) + T[:3, 3]
+
+
+def _refit_3d3d(T_best, p, q, cfg: RansacConfig):
+    """Iteratively refit on the hard inliers of the current model (static
+    rounds); returns the refit pose and its inlier mask."""
+
+    def sq_err(T_cur):
+        return jnp.sum((q - _transform(p, T_cur)) ** 2, axis=-1)
+
+    def refit(T_cur, _):
+        w = (sq_err(T_cur) < cfg.threshold**2).astype(p.dtype)
+        # Degenerate guard: with <3 inliers keep the current model.
+        enough = jnp.sum(w) >= 3
+        # Horn's weighted quaternion power iteration: the same
+        # least-squares optimum as Kabsch, without a 3x3 SVD.
+        T_new = horn_quaternion(
+            p, q, weights=jnp.where(enough, w, jnp.ones_like(w))
+        )
+        return jnp.where(enough, T_new, T_cur), None
+
+    T_best, _ = jax.lax.scan(refit, T_best, None, length=cfg.refit_rounds)
+    return T_best, sq_err(T_best) < cfg.threshold**2
 
 
 def required_hypotheses(
@@ -275,29 +252,10 @@ def estimate_pose_3d3d_normals(
         jnp.take(n_q, idx, axis=0),
     )
 
-    p_pad, q_pad = pad_correspondences_3d3d(p, q, _ceil128(N))
     best, best_score, T_best = best_pose_3d3d(
-        T, p_pad, q_pad, cfg.threshold, return_pose=True
+        T, p, q, cfg.threshold, return_pose=True
     )
-
-    def refit(T_cur, _):
-        e = jnp.sum((q - (p @ T_cur[:3, :3].T + T_cur[:3, 3])) ** 2, axis=-1)
-        w = (e < cfg.threshold**2).astype(p.dtype)
-        enough = jnp.sum(w) >= 3
-        # Horn, not Kabsch: a single 3x3 SVD costs ~27 us on TPU (XLA
-        # QR-iteration loop) — x2 refit rounds that was up to half the
-        # K=4096 estimate. Horn's weighted quaternion power iteration is
-        # the same least-squares optimum, SVD-free (BASELINE.md "Measured —
-        # rounds 3+4", batched-small-SVD finding).
-        T_new = horn_quaternion(
-            p, q, weights=jnp.where(enough, w, jnp.ones_like(w))
-        )
-        return jnp.where(enough, T_new, T_cur), None
-
-    T_best, _ = jax.lax.scan(refit, T_best, None, length=cfg.refit_rounds)
-
-    e = jnp.sum((q - (p @ T_best[:3, :3].T + T_best[:3, 3])) ** 2, axis=-1)
-    inliers = e < cfg.threshold**2
+    T_best, inliers = _refit_3d3d(T_best, p, q, cfg)
     num = jnp.sum(inliers.astype(jnp.float32))
     return RansacResult(
         pose=T_best,
@@ -321,9 +279,6 @@ def estimate_pose_2d3d(
     """
     N = points.shape[0]
     K = cfg.num_hypotheses
-    # Any K >= 1 works (4K scored poses; the scorer falls back to its jnp
-    # twin when 4K is not kernel-tileable). Multiples of 64 stay fastest.
-
     idx = sample_minimal_sets(key, N, K, 3, cfg.prosac)  # (K, 3)
     pm = jnp.take(points, idx, axis=0)  # (K, 3, 3)
     om = jnp.take(obs, idx, axis=0)  # (K, 3, 2)
@@ -332,30 +287,19 @@ def estimate_pose_2d3d(
 
     T_roots, valid = p3p(pm, rays)  # (K, 4, 4, 4), (K, 4)
     valid_all = valid.reshape(K * 4)
-    # Pack immediately: the (4K, 4, 4) root tensor gets exactly ONE
-    # consumer (this pack) — scoring AND the winner gather then read the
-    # 2-D packed matrix, avoiding the rank-3 row-gather layout tax
-    # (BASELINE.md round-5 layout rule; measured ~540 us at K=32768 on
-    # the 3d3d path, same mechanism here).
-    from rgbd_pose_estimation_tpu.ops.ransac_score import (
-        pack_poses,
-        unpack_pose,
-    )
-
     P_all = pack_poses(T_roots.reshape(K * 4, 4, 4))
     # Invalid roots: replace with identity (finite math) and inf the score.
     ident = jnp.concatenate([jnp.eye(3).reshape(9), jnp.zeros(3)])
     P_all = jnp.where(valid_all[:, None], P_all, ident.astype(P_all.dtype))
 
-    pts_pad, obs_pad = pad_points_obs_2d3d(points, obs, _ceil128(N))
-    msac, _counts = score_poses_2d3d(P_all, pts_pad, obs_pad, cfg.threshold)
+    msac, _counts = score_poses_2d3d(P_all, points, obs, cfg.threshold)
     msac = jnp.where(valid_all & ~jnp.isnan(msac), msac, jnp.inf)
     best = jnp.argmin(msac)
     T_best = unpack_pose(P_all[best])
     best_score = msac[best]
 
     def inlier_w(T_cur):
-        Xc = points @ T_cur[:3, :3].T + T_cur[:3, 3]
+        Xc = _transform(points, T_cur)
         z = jnp.maximum(Xc[:, 2], 1e-6)
         e = jnp.sum((Xc[:, :2] / z[:, None] - obs) ** 2, axis=-1)
         e = jnp.where(Xc[:, 2] < 1e-6, jnp.inf, e)

@@ -2,7 +2,6 @@ from rgbd_pose_estimation_tpu.solvers.absolute_orientation import (
     kabsch,
     umeyama,
     horn_quaternion,
-    horn_from_moments,
 )
 from rgbd_pose_estimation_tpu.solvers.p3p import p3p, p3p_best
 from rgbd_pose_estimation_tpu.solvers.pnp import pnp_dlt, pnp_refine
@@ -11,7 +10,6 @@ __all__ = [
     "kabsch",
     "umeyama",
     "horn_quaternion",
-    "horn_from_moments",
     "p3p",
     "p3p_best",
     "pnp_dlt",

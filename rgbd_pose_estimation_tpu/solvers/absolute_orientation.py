@@ -28,7 +28,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from rgbd_pose_estimation_tpu.core.lie import rt_to_matrix, quat_to_rotmat
+from rgbd_pose_estimation_tpu.core.lie import (
+    HIGHEST,
+    matmul,
+    quat_to_rotmat,
+    rt_to_matrix,
+)
 
 
 def _weighted_stats(p, q, weights):
@@ -42,7 +47,7 @@ def _weighted_stats(p, q, weights):
     pc = p - cp[..., None, :]
     qc = q - cq[..., None, :]
     # H = sum_i w_i * pc_i qc_i^T  — a (..., 3, 3) batched matmul.
-    H = jnp.einsum("...ni,...nj->...ij", pc * w, qc)
+    H = jnp.einsum("...ni,...nj->...ij", pc * w, qc, precision=HIGHEST)
     return cp, cq, pc, qc, H, weights, wsum[..., 0]
 
 
@@ -56,11 +61,11 @@ def kabsch(p: jnp.ndarray, q: jnp.ndarray, weights=None) -> jnp.ndarray:
     U, _, Vt = jnp.linalg.svd(H)
     V = jnp.swapaxes(Vt, -1, -2)
     Ut = jnp.swapaxes(U, -1, -2)
-    d = jnp.linalg.det(V @ Ut)
+    d = jnp.linalg.det(matmul(V, Ut))
     D = jnp.zeros_like(H).at[..., 0, 0].set(1.0).at[..., 1, 1].set(1.0)
     D = D.at[..., 2, 2].set(d)
-    R = V @ D @ Ut
-    t = cq - jnp.einsum("...ij,...j->...i", R, cp)
+    R = matmul(matmul(V, D), Ut)
+    t = cq - jnp.einsum("...ij,...j->...i", R, cp, precision=HIGHEST)
     return rt_to_matrix(R, t)
 
 
@@ -75,10 +80,10 @@ def umeyama(p: jnp.ndarray, q: jnp.ndarray, weights=None, with_scale=False):
     U, S, Vt = jnp.linalg.svd(H)
     V = jnp.swapaxes(Vt, -1, -2)
     Ut = jnp.swapaxes(U, -1, -2)
-    d = jnp.linalg.det(V @ Ut)
+    d = jnp.linalg.det(matmul(V, Ut))
     D = jnp.zeros_like(H).at[..., 0, 0].set(1.0).at[..., 1, 1].set(1.0)
     D = D.at[..., 2, 2].set(d)
-    R = V @ D @ Ut
+    R = matmul(matmul(V, D), Ut)
     if with_scale:
         var_p = jnp.sum(
             weights * jnp.sum(pc * pc, axis=-1), axis=-1
@@ -88,7 +93,7 @@ def umeyama(p: jnp.ndarray, q: jnp.ndarray, weights=None, with_scale=False):
         s = trDS / jnp.maximum(var_p, 1e-12)
     else:
         s = jnp.ones(H.shape[:-2], dtype=p.dtype)
-    t = cq - s[..., None] * jnp.einsum("...ij,...j->...i", R, cp)
+    t = cq - s[..., None] * jnp.einsum("...ij,...j->...i", R, cp, precision=HIGHEST)
     return rt_to_matrix(R, t), s
 
 
@@ -114,14 +119,12 @@ def horn_quaternion(
     power method — no SVD, no eigh, no host branching.
 
     Layout note (the reason this is not written with (..., 4, 4) matmuls):
-    arrays whose trailing axis is 3 or 4 occupy 3–4 of a TPU vreg's 128
-    lanes, wasting >96% of every vector op. All per-problem algebra here —
-    cross-covariance, N-matrix, three symmetric 4x4 squarings, the power
-    iteration — is therefore spelled out on COMPONENT arrays of shape
-    ``batch``, which tile the VPU perfectly. Measured on the RANSAC
-    hypothesis path (K=32768 3-point sets): 5.74 ms → ~0.1 ms vs the
-    (K,4,4) matmul formulation. ``iters=12`` after 3 squarings recovers
-    the rotation to f32 precision on non-degenerate sets.
+    all per-problem algebra — cross-covariance, N-matrix, three symmetric
+    4x4 squarings, the power iteration — is spelled out on COMPONENT
+    arrays of shape ``batch``, so every operation is elementwise over the
+    batch and XLA fuses the whole solve, with no tiny matrix products.
+    ``iters=12`` after 3 squarings recovers the rotation to f32 precision
+    on non-degenerate sets.
     """
     if weights is None:
         w = jnp.ones(p.shape[:-1], dtype=p.dtype)
@@ -165,11 +168,10 @@ def horn_rotation_directions(
 
     The SVD-free path for Wahba's problem: identical Horn N-matrix eigen
     machinery as :func:`horn_quaternion`, fed the raw (uncentered)
-    direction correlation Σ w vp_a vq_b. Exists because batched small SVD
-    is a TPU trap — ~27 us PER 3x3 matrix in XLA's QR-iteration loop
-    (BASELINE.md "Measured — rounds 3+4") — which made the SVD-based
-    Procrustes in the 2-pt-normals RANSAC engine cost tens of ms per
-    estimate. Returns ``(..., 3, 3)`` proper rotations.
+    direction correlation Σ w vp_a vq_b. Exists because XLA lowers a
+    batched small SVD to an iterative loop, which made the SVD-based
+    Procrustes the slowest stage of the 2-pt-normals RANSAC engine.
+    Returns ``(..., 3, 3)`` proper rotations.
     """
     if weights is None:
         w = jnp.ones(vp.shape[:-1], dtype=vp.dtype)
@@ -189,40 +191,6 @@ def horn_rotation_directions(
     zero = jnp.zeros_like(cov[0])
     T = _horn_from_components((zero, zero, zero), (zero, zero, zero), cov, iters)
     return T[..., :3, :3]
-
-
-def horn_from_moments(mom: jnp.ndarray, iters: int = 12) -> jnp.ndarray:
-    """Horn solve directly from per-sample moment sums (no point arrays).
-
-    ``mom`` is the ``(16, K)`` output of ``ops.moments.minimal_moments``:
-    rows 0-2 Σp, 3-5 Σq, 6-14 Σ p qᵀ (row-major), 15 the count. The
-    centered cross-covariance follows from the moments alone:
-
-        H_ab = Σ p_a q_b − (Σ p_a)(Σ q_b) / n
-
-    which feeds the same component-of-arrays eigen path as
-    :func:`horn_quaternion`. This is the RANSAC engine's gather-free
-    hypothesis path (ops/moments.py).
-    """
-    n = jnp.maximum(mom[15], 1e-12)
-    inv = 1.0 / n
-    cpx, cpy, cpz = mom[0] * inv, mom[1] * inv, mom[2] * inv
-    cqx, cqy, cqz = mom[3] * inv, mom[4] * inv, mom[5] * inv
-    sxx = mom[6] - mom[0] * mom[3] * inv
-    sxy = mom[7] - mom[0] * mom[4] * inv
-    sxz = mom[8] - mom[0] * mom[5] * inv
-    syx = mom[9] - mom[1] * mom[3] * inv
-    syy = mom[10] - mom[1] * mom[4] * inv
-    syz = mom[11] - mom[1] * mom[5] * inv
-    szx = mom[12] - mom[2] * mom[3] * inv
-    szy = mom[13] - mom[2] * mom[4] * inv
-    szz = mom[14] - mom[2] * mom[5] * inv
-    return _horn_from_components(
-        (cpx, cpy, cpz),
-        (cqx, cqy, cqz),
-        (sxx, sxy, sxz, syx, syy, syz, szx, szy, szz),
-        iters,
-    )
 
 
 def _horn_from_components(cp, cq, cov, iters: int):

@@ -15,7 +15,12 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from rgbd_pose_estimation_tpu.core.lie import rt_to_matrix, so3_exp
+from rgbd_pose_estimation_tpu.core.lie import (
+    HIGHEST,
+    matmul,
+    rt_to_matrix,
+    so3_exp,
+)
 
 
 def procrustes_rotation(vp: jnp.ndarray, vq: jnp.ndarray, weights=None) -> jnp.ndarray:
@@ -24,10 +29,9 @@ def procrustes_rotation(vp: jnp.ndarray, vq: jnp.ndarray, weights=None) -> jnp.n
     ``vp``/``vq`` are ``(..., M, 3)`` direction sets. Solved via the
     quaternion Horn path (solvers/absolute_orientation.py::
     horn_rotation_directions): mathematically the same optimum as SVD
-    Procrustes restricted to proper rotations, but SVD-free — a batched
-    3x3 SVD costs ~27 us per matrix on TPU (the trap that made P3P 100%
-    of the 2d3d estimate; BASELINE.md "Measured — rounds 3+4"), which on
-    the K-hypothesis RANSAC path here would be tens of ms per estimate.
+    Procrustes restricted to proper rotations, but SVD-free: XLA lowers a
+    batched 3x3 SVD to an iterative loop, far slower than the quaternion
+    power iteration on the K-hypothesis RANSAC path.
     """
     from rgbd_pose_estimation_tpu.solvers.absolute_orientation import (
         horn_rotation_directions,
@@ -53,7 +57,7 @@ def ao_2pt_normals(p: jnp.ndarray, q: jnp.ndarray, np_: jnp.ndarray, nq: jnp.nda
     R = procrustes_rotation(vp, vq)
     cp = jnp.mean(p, axis=-2)
     cq = jnp.mean(q, axis=-2)
-    t = cq - jnp.einsum("...ij,...j->...i", R, cp)
+    t = cq - jnp.einsum("...ij,...j->...i", R, cp, precision=HIGHEST)
     return rt_to_matrix(R, t)
 
 
@@ -89,6 +93,6 @@ def ao_1pt_normal_fan(
     # Rotation about nq_u by each yaw, composed after the alignment.
     w = nq_u[..., None, :] * yaw[:, None]  # (..., num_yaw, 3)
     Ry = so3_exp(w)
-    R = Ry @ R0[..., None, :, :]
-    t = q[..., None, :] - jnp.einsum("...yij,...j->...yi", R, p)
+    R = matmul(Ry, R0[..., None, :, :])
+    t = q[..., None, :] - jnp.einsum("...yij,...j->...yi", R, p, precision=HIGHEST)
     return rt_to_matrix(R, t)

@@ -7,7 +7,7 @@ Perspective Pose Estimation Problem"): the three law-of-cosines constraints
 reduce to a quartic in the ratio of two ray depths, giving up to four pose
 solutions.
 
-Design for TPU (SURVEY.md hard-part #2):
+Design (SURVEY.md hard-part #2):
 - the quartic is solved in closed form with masked real-root extraction
   (core/poly.py) — no host branching, so the solver ``vmap``s over thousands
   of RANSAC minimal samples;
@@ -15,9 +15,7 @@ Design for TPU (SURVEY.md hard-part #2):
   then produced by the 3-point HORN solver (quaternion power iteration,
   matmul/elementwise only) — reusing the 3D-3D fast path. The obvious
   alternative, batched Kabsch, lowers to a batched 3x3 SVD whose XLA
-  QR-iteration loop costs ~27 us PER MATRIX on TPU: measured 56.9 ms for
-  the (2048, 4) root batch vs 49 us for Horn (BASELINE.md "Measured —
-  round 4"), which made the P3P solve 100% of the 2d3d estimate;
+  QR-iteration loop is orders of magnitude slower than Horn per root;
 - invalid roots surface as ``valid=False`` with finite dummy poses, so
   downstream scoring simply masks them out.
 
@@ -30,6 +28,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
+from rgbd_pose_estimation_tpu.core.lie import HIGHEST
 from rgbd_pose_estimation_tpu.core.poly import solve_quartic_real
 from rgbd_pose_estimation_tpu.solvers.absolute_orientation import horn_quaternion
 
@@ -116,7 +115,7 @@ def p3p(points: jnp.ndarray, rays: jnp.ndarray):
     Pw = jnp.broadcast_to(points[..., None, :, :], Xc.shape)
 
     # World→camera rigid transform per root via 3-point Horn (SVD-free —
-    # see the module docstring for the measured 1000x vs batched Kabsch).
+    # see the module docstring).
     T = horn_quaternion(Pw, Xc)
     return T, valid
 
@@ -135,7 +134,7 @@ def p3p_best(
     T, valid = p3p(points, rays)  # (..., 4, 4, 4), (..., 4)
     R = T[..., :3, :3]
     t = T[..., :3, 3]
-    Xc = jnp.einsum("...rij,...j->...ri", R, extra_point) + t
+    Xc = jnp.einsum("...rij,...j->...ri", R, extra_point, precision=HIGHEST) + t
     Xc_dir = Xc / jnp.maximum(
         jnp.linalg.norm(Xc, axis=-1, keepdims=True), 1e-12
     )
@@ -143,5 +142,5 @@ def p3p_best(
     score = jnp.where(valid, align, -jnp.inf)
     k = jnp.argmax(score, axis=-1)
     onehot = (k[..., None] == jnp.arange(4)).astype(T.dtype)
-    T_best = jnp.einsum("...rij,...r->...ij", T, onehot)
+    T_best = jnp.einsum("...rij,...r->...ij", T, onehot, precision=HIGHEST)
     return T_best, jnp.any(valid, axis=-1)

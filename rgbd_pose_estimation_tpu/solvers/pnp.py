@@ -17,6 +17,8 @@ import jax
 import jax.numpy as jnp
 
 from rgbd_pose_estimation_tpu.core.lie import (
+    HIGHEST,
+    matmul,
     matrix_to_rt,
     rt_to_matrix,
     se3_exp,
@@ -54,7 +56,7 @@ def pnp_dlt(points: jnp.ndarray, obs: jnp.ndarray, weights=None):
     A = jnp.concatenate([row_x, row_y], axis=-2)  # (..., 2N, 12)
     w2 = jnp.concatenate([weights, weights], axis=-1)[..., None]
     # Smallest eigenvector of AtA (12x12 symmetric) — batched eigh.
-    AtA = jnp.einsum("...ni,...nj->...ij", A * w2, A)
+    AtA = jnp.einsum("...ni,...nj->...ij", A * w2, A, precision=HIGHEST)
     _, vecs = jnp.linalg.eigh(AtA)
     p = vecs[..., :, 0]  # eigenvector of the smallest eigenvalue
 
@@ -63,7 +65,8 @@ def pnp_dlt(points: jnp.ndarray, obs: jnp.ndarray, weights=None):
     # The eigenvector sign is arbitrary: pick the sign giving positive mean
     # projective depth (cheirality) *before* orthonormalization.
     z_raw = (
-        jnp.einsum("...j,...nj->...n", M[..., 2, :3], points) + M[..., 2:3, 3]
+        jnp.einsum("...j,...nj->...n", M[..., 2, :3], points, precision=HIGHEST)
+        + M[..., 2:3, 3]
     )
     flip = jnp.where(jnp.mean(z_raw, axis=-1) < 0, -1.0, 1.0)
     M = M * flip[..., None, None]
@@ -74,10 +77,10 @@ def pnp_dlt(points: jnp.ndarray, obs: jnp.ndarray, weights=None):
     # common projective scale from the singular values.
     U, S, Vt = jnp.linalg.svd(R_raw)
     scale = jnp.mean(S, axis=-1)
-    det = jnp.linalg.det(U @ Vt)
+    det = jnp.linalg.det(matmul(U, Vt))
     D = jnp.zeros_like(R_raw).at[..., 0, 0].set(1.0).at[..., 1, 1].set(1.0)
     D = D.at[..., 2, 2].set(jnp.where(det < 0, -1.0, 1.0))
-    R = U @ D @ Vt
+    R = matmul(matmul(U, D), Vt)
     t = t_raw / jnp.maximum(scale, 1e-12)[..., None]
     return rt_to_matrix(R, t)
 
@@ -85,7 +88,8 @@ def pnp_dlt(points: jnp.ndarray, obs: jnp.ndarray, weights=None):
 def _reproj_residuals(T, points, obs):
     """Per-point normalized-plane reprojection residuals ``(..., N, 2)``."""
     R, t = matrix_to_rt(T)
-    Xc = jnp.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+    Xc = jnp.einsum("...ij,...nj->...ni", R, points, precision=HIGHEST)
+    Xc = Xc + t[..., None, :]
     z = jnp.maximum(Xc[..., 2], 1e-6)
     proj = Xc[..., :2] / z[..., None]
     return proj - obs, Xc
@@ -142,13 +146,13 @@ def pnp_refine(
         )
         J = jnp.stack([Ju, Jv], axis=-2)  # (..., N, 2, 6)
         w = weights[..., None, None]
-        JtJ = jnp.einsum("...nri,...nrj->...ij", J * w, J)
-        Jtr = jnp.einsum("...nri,...nr->...i", J * w, r)
+        JtJ = jnp.einsum("...nri,...nrj->...ij", J * w, J, precision=HIGHEST)
+        Jtr = jnp.einsum("...nri,...nr->...i", J * w, r, precision=HIGHEST)
         H = JtJ + damping * jnp.broadcast_to(
             jnp.eye(6, dtype=JtJ.dtype), JtJ.shape
         )
         delta = -jnp.linalg.solve(H, Jtr[..., None])[..., 0]
-        return se3_exp(delta) @ T, None
+        return matmul(se3_exp(delta), T), None
 
     T, _ = jax.lax.scan(step, T0, None, length=iters)
     return T

@@ -39,10 +39,8 @@ class IcpConfig:
 
     levels: int = 3  # pyramid levels
     iters_per_level: tuple = (5, 7, 10)  # indexed by level: finest first
-    downscale: int = 1  # power-of-2 input downsample before tracking.
-    # Measured on 1x v5e (BASELINE.md): full 640x480 tracks at 100 fps
-    # device-side with nearest association, so downscale=1 is both the
-    # max-quality and real-time setting; 2 quarters the work if needed.
+    downscale: int = 1  # power-of-2 input downsample before tracking;
+    # 2 quarters the work if needed.
     max_depth: float = 5.0
     min_depth: float = 0.1
     dist_threshold: float = 0.10  # association gate (meters)
@@ -57,31 +55,25 @@ class IcpConfig:
     photo_huber: float = 0.1  # robust scale for intensity residuals
     # Projective data association. "nearest" (KinectFusion-standard) packs
     # target vertex+normal+validity into ONE flat map and does a single
-    # row-gather per GN step — TPU gathers are index-rate-bound, so this is
-    # ~3.5x faster per iteration than "bilinear" (4 vertex taps + 1 normal
-    # gather) at equal tracking accuracy on the benchmark scenes.
+    # row-gather per GN step, against "bilinear" (4 vertex taps + 1 normal
+    # gather), at equal tracking accuracy on the benchmark scenes.
     association: str = "nearest"
-    # Source-pixel subsampling stride per level (finest first). The chip's
-    # gather unit is hard-capped at ~0.29 G indices/s (tools/roofline.py:
-    # payload width, alignment, and sortedness hints all change nothing),
-    # and association is ~95% of a GN step at 640x480 — so the only lever
-    # on the hot loop is issuing fewer indices. Stride s keeps every s-th
-    # source row/column (target maps stay full resolution; only the
-    # residual SAMPLE thins, s^2-fold). Point-to-plane ICP is massively
-    # over-determined: 6 unknowns from ~77k residuals at stride 2.
+    # Source-pixel subsampling stride per level (finest first). Stride s
+    # keeps every s-th source row/column (target maps stay full
+    # resolution; only the residual SAMPLE thins, s^2-fold), so each GN
+    # step gathers and reduces s^2 fewer pixels. Point-to-plane ICP is
+    # massively over-determined: 6 unknowns from ~77k residuals at
+    # stride 2.
     source_stride: tuple = (1, 1, 1)
     # Re-associate every k-th GN iteration per level (1 = every iteration,
-    # the classic KinectFusion loop). Association IS the step cost (the
-    # index-rate-bound gather above), while fixed-correspondence GN steps
-    # are pure elementwise math — standard ICP alternation permits several
-    # minimize steps per association. The skip is a TRACE-time decision
-    # (icp/dense.py statically unrolls the k-pattern): a lax.cond
-    # formulation lowered to a select that executed both branches and
-    # saved nothing (both experiments recorded in BASELINE.md "Measured —
-    # rounds 3+4"). Measured with the static unroll, config-3 hard mode:
-    # k=2 → 1.38 ms/track (from 1.67) and k=3 → 1.14 ms, at equal-or-
-    # better ATE on every seed tested; config-3 ships k=2. Because the
-    # unroll is static, the savings survive icp_track_batch's vmap too.
+    # the classic KinectFusion loop). Fixed-correspondence GN steps skip
+    # the gather and are pure elementwise math — standard ICP alternation
+    # permits several minimize steps per association. The skip is a
+    # TRACE-time decision (icp/dense.py statically unrolls the k-pattern):
+    # a lax.cond formulation lowered to a select that executed both
+    # branches and saved nothing. On config-3 hard mode k=2 and k=3 gave
+    # equal-or-better ATE on every seed tested; config-3 ships k=2.
+    # Because the unroll is static, it survives icp_track_batch's vmap.
     reassoc_every: int = 1
 
 
@@ -97,9 +89,7 @@ class PoseGraphConfig:
     # "dense" Cholesky is exact; "pcg" is matrix-free block-Jacobi-
     # preconditioned CG over the edge list — O(E) per matvec, no (6K)²
     # materialization. "auto" picks dense at K ≤ dense_max_nodes; the
-    # crossover measured on the chip (BASELINE.md rounds 3+4: 10-GN-iter
-    # chain+loops graphs) is between 128 kf (dense 5.5 ms vs pcg 9.5) and
-    # 256 kf (dense 21.0 vs pcg 14.3); at 512 kf pcg is 2.2x faster.
+    # crossover is not yet measured on the H100 (ROADMAP Queue 1).
     solver: str = "auto"
     pcg_iters: int = 100
     dense_max_nodes: int = 192
@@ -146,9 +136,8 @@ class KeyframeConfig:
 class FrontendConfig:
     """Sparse feature front-end (detection + matching)."""
 
-    # "orb" = host OpenCV ORB (reference parity); "tpu" = on-device
-    # FAST+BRIEF (features/tpu_detect.py — measured 574 us detect vs
-    # ~5-15 ms host ORB per keyframe, BASELINE.md). Both feed the same
+    # "orb" = host OpenCV ORB (reference parity; needs cv2); "tpu" =
+    # on-device FAST+BRIEF (features/tpu_detect.py). Both feed the same
     # device Hamming matcher and the BA track builder (ba/build.py).
     detector: str = "orb"
     max_features: int = 512

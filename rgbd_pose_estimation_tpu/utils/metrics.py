@@ -3,7 +3,7 @@
 The reference prints ad-hoc stdout; here every pipeline stage appends one
 JSON record per frame to a JSONL file (frame id, inliers, hypotheses scored,
 ms/frame, pose), and ``summary()`` aggregates the run — these files are the
-source for BASELINE.md's measured columns and for ``eval/report.py``.
+source for the measured columns and for ``eval/report.py``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ from rgbd_pose_estimation_tpu.ba.schur import (
     make_synthetic_ba_problem,
 )
 from rgbd_pose_estimation_tpu.core.lie import se3_exp
-from rgbd_pose_estimation_tpu.ops.icp_jtj import icp_jtj_jtr, pack_icp_data
+from rgbd_pose_estimation_tpu.ops.icp_jtj import icp_jtj_jtr
 from rgbd_pose_estimation_tpu.ops.ransac_score import score_poses_3d3d
 from rgbd_pose_estimation_tpu.parallel.mesh import (
     check_config_consistency,
@@ -56,9 +56,8 @@ class TestShardedParity:
         n = jnp.asarray(rng.normal(size=(m, 3)), jnp.float32)
         n = n / jnp.linalg.norm(n, axis=-1, keepdims=True)
         w = jnp.ones(m)
-        data = pack_icp_data(p, q, n, w)
-        ref = icp_jtj_jtr(data)
-        shd = icp_jtj_sharded(mesh, data)
+        ref = icp_jtj_jtr(p, q, n, w)
+        shd = icp_jtj_sharded(mesh, p, q, n, w)
         for a, b in zip(shd, ref):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5, atol=1e-3)
 

@@ -1,43 +1,47 @@
-"""Parity tests for the fused JtJ/Jtr accumulation kernel."""
+"""Parity tests for the JtJ/Jtr reduction (ops/icp_jtj.py)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rgbd_pose_estimation_tpu.ops.icp_jtj import (
     icp_jtj_jtr,
     icp_jtj_jtr_reference,
-    pack_icp_data,
 )
 
 
 def _data(seed, m):
     rng = np.random.default_rng(seed)
-    p = jnp.asarray(rng.normal(size=(m, 3)), jnp.float32)
-    q = p + jnp.asarray(rng.normal(size=(m, 3)) * 0.01, jnp.float32)
-    n = jnp.asarray(rng.normal(size=(m, 3)), jnp.float32)
-    n = n / jnp.linalg.norm(n, axis=-1, keepdims=True)
-    w = jnp.asarray(rng.uniform(0, 1, size=(m,)) > 0.3, jnp.float32)
-    return pack_icp_data(p, q, n, w)
+    p = rng.normal(size=(m, 3))
+    q = p + rng.normal(size=(m, 3)) * 0.01
+    n = rng.normal(size=(m, 3))
+    n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    w = (rng.uniform(0, 1, size=(m,)) > 0.3).astype(np.float64)
+    return p, q, n, w
+
+
+def _float64(p, q, n, w):
+    r = np.sum(n * (p - q), axis=-1)
+    J = np.concatenate([n, np.cross(p, n), r[:, None], np.ones((len(r), 1))], -1)
+    A = (J * w[:, None]).T @ J
+    return A[:6, :6], A[:6, 6], A[6, 6], A[7, 7]
+
+
+def _f32(*arrays):
+    return [jnp.asarray(a, jnp.float32) for a in arrays]
 
 
 class TestIcpJtJ:
-    def test_pack_pads_with_zero_weight(self):
-        data = _data(0, 1000)  # not a multiple of 64*128
-        assert data.shape == (10, 64, 128)  # padded to the full 64-sublane tile
-        w = np.asarray(data[9]).reshape(-1)
-        assert np.all(w[1000:] == 0.0)
-
-    def test_interpret_matches_reference(self):
-        data = _data(1, 8 * 128 * 3)
-        ref = icp_jtj_jtr_reference(data)
-        pal = icp_jtj_jtr(data, impl="interpret")
-        for a, b in zip(pal, ref):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-4, atol=1e-4)
+    @pytest.mark.parametrize("fn", [icp_jtj_jtr, icp_jtj_jtr_reference],
+                             ids=["plain", "reference"])
+    def test_matches_float64(self, fn):
+        data = _data(1, 8 * 128 * 3 + 5)
+        out = fn(*_f32(*data))
+        for a, b in zip(out, _float64(*data)):
+            np.testing.assert_allclose(np.asarray(a), b, rtol=2e-4, atol=1e-3)
 
     def test_jtj_is_spd_and_consistent(self):
-        data = _data(2, 4096)
-        JtJ, Jtr, err, wsum = icp_jtj_jtr_reference(data)
+        JtJ, Jtr, err, wsum = icp_jtj_jtr(*_f32(*_data(2, 4096)))
         # Symmetric positive semi-definite by construction.
         np.testing.assert_allclose(np.asarray(JtJ), np.asarray(JtJ.T), rtol=1e-5)
         ev = np.linalg.eigvalsh(np.asarray(JtJ))
@@ -45,8 +49,7 @@ class TestIcpJtJ:
         assert float(wsum) > 0
 
     def test_zero_weights_zero_output(self):
-        data = _data(3, 2048)
-        data = data.at[9].set(0.0)
-        JtJ, Jtr, err, wsum = icp_jtj_jtr_reference(data)
+        p, q, n, w = _data(3, 2048)
+        JtJ, Jtr, err, wsum = icp_jtj_jtr(*_f32(p, q, n, np.zeros_like(w)))
         np.testing.assert_allclose(np.asarray(JtJ), 0.0)
         assert float(wsum) == 0.0

@@ -1,4 +1,5 @@
-"""Kernel parity tests (SURVEY.md §4.4): Pallas interpreter vs jnp twin."""
+"""Scorer parity tests (SURVEY.md §4.4): the plain scorers against their
+HIGHEST-precision einsum references."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +12,6 @@ from rgbd_pose_estimation_tpu.ops.ransac_score import (
     score_poses_2d3d,
     score_poses_2d3d_reference,
     score_poses_3d3d,
-    score_poses_3d3d_quad,
     score_poses_3d3d_reference,
 )
 
@@ -22,16 +22,17 @@ def _poses(seed, k):
 
 
 class TestScore3D3D:
-    @pytest.mark.parametrize("k,n", [(256, 128), (512, 384)])
-    def test_pallas_matches_reference(self, k, n):
+    # Ragged K and N included: the plain form needs no padding.
+    @pytest.mark.parametrize("k,n", [(256, 128), (512, 384), (77, 301)])
+    def test_plain_matches_reference(self, k, n):
         rng = np.random.default_rng(0)
         T = _poses(1, k)
         p = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
         q = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
         m_ref, c_ref = score_poses_3d3d_reference(T, p, q, 0.1)
-        m_pal, c_pal = score_poses_3d3d(T, p, q, 0.1, impl="interpret")
-        np.testing.assert_allclose(np.asarray(m_pal), np.asarray(m_ref), rtol=1e-5)
-        np.testing.assert_array_equal(np.asarray(c_pal), np.asarray(c_ref))
+        m, c = score_poses_3d3d(T, p, q, 0.1)
+        np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref), rtol=1e-5)
+        np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
 
     def test_true_pose_wins(self):
         rng = np.random.default_rng(2)
@@ -66,87 +67,7 @@ class TestScore3D3D:
         )
 
 
-class TestQuadFormScorer:
-    """MXU fast-ranking path (ops/ransac_score.py round-3): the quadratic
-    expansion must match the direct computation for ORTHONORMAL poses (on
-    CPU both are exact f32, so tolerances here bound only the expansion's
-    cancellation, not the TPU bf16 matmul measured in tools/msac_opt.py)."""
-
-    def test_quad_matches_reference(self):
-        rng = np.random.default_rng(0)
-        T = _poses(1, 512)
-        p = jnp.asarray(rng.normal(size=(384, 3)), jnp.float32)
-        q = jnp.asarray(rng.normal(size=(384, 3)), jnp.float32)
-        m_ref, _ = score_poses_3d3d_reference(T, p, q, 0.1)
-        m_q = score_poses_3d3d_quad(T, p, q, 0.1)
-        np.testing.assert_allclose(np.asarray(m_q), np.asarray(m_ref), rtol=2e-3)
-
-    def test_quad_fused_kernel_matches_twin(self):
-        """The Pallas fused quad kernel (round-5: VMEM-resident tiles, no
-        (K, N) HBM materialization) == the jnp twin with bf16-rounded
-        operands — identical math: bf16 MXU ingest, f32 accumulate,
-        clip+sum epilogue."""
-        from rgbd_pose_estimation_tpu.ops.ransac_score import (
-            score_poses_3d3d_quad_fused,
-        )
-
-        rng = np.random.default_rng(3)
-        T = _poses(4, 512)
-        p = jnp.asarray(rng.normal(size=(384, 3)), jnp.float32)
-        q = jnp.asarray(rng.normal(size=(384, 3)), jnp.float32)
-        m_twin = score_poses_3d3d_quad(
-            T, p, q, 0.1, operand_dtype=jnp.bfloat16
-        )
-        m_fused = score_poses_3d3d_quad_fused(T, p, q, 0.1, impl="interpret")
-        np.testing.assert_allclose(
-            np.asarray(m_fused), np.asarray(m_twin), rtol=1e-5
-        )
-
-    def test_quad_fused_with_engine_pads(self):
-        from rgbd_pose_estimation_tpu.ops.ransac_score import (
-            score_poses_3d3d_quad_fused,
-        )
-        from rgbd_pose_estimation_tpu.ransac.engine import (
-            pad_correspondences_3d3d,
-        )
-
-        rng = np.random.default_rng(5)
-        T = _poses(6, 256)
-        p = jnp.asarray(rng.normal(size=(100, 3)), jnp.float32)
-        q = se3_apply(T[3][None], p[None])[0]
-        pp, qq = pad_correspondences_3d3d(p, q, 128)
-        m_ref, _ = score_poses_3d3d_reference(T, pp, qq, 0.05)
-        m_fused = score_poses_3d3d_quad_fused(T, pp, qq, 0.05, impl="interpret")
-        # bf16 ingest: the ~1e4 pad sentinels (e ~ 1e9) and the real rows
-        # must stay finite and clipped — and the true winner must still
-        # rank first. Absolute values on NEAR-ZERO rows carry the bf16
-        # expansion error (up to ~|p|^2 * 2^-8 per row before the clip, so
-        # the winner's score is only rank-accurate, not value-accurate —
-        # exactly why best_pose_3d3d re-scores finalists in f32).
-        m_fused = np.asarray(m_fused)
-        assert np.isfinite(m_fused).all()
-        assert int(np.argmin(m_fused)) == 3
-        # Non-winner rows are saturation-dominated: tight agreement there.
-        mask = np.arange(len(m_fused)) != 3
-        np.testing.assert_allclose(
-            m_fused[mask], np.asarray(m_ref)[mask], rtol=3e-2
-        )
-
-    def test_quad_survives_huge_pad_sentinels(self):
-        # Engine pads sit at ~1e4-3e4 coords; their e ~ 1e9 must still clamp
-        # to tau^2 under the expansion (error << e there).
-        rng = np.random.default_rng(1)
-        T = _poses(2, 256)
-        p = jnp.asarray(rng.normal(size=(100, 3)), jnp.float32)
-        q = se3_apply(T[3][None], p[None])[0]
-        from rgbd_pose_estimation_tpu.ransac.engine import (
-            pad_correspondences_3d3d,
-        )
-        pp, qq = pad_correspondences_3d3d(p, q, 128)
-        m_ref, _ = score_poses_3d3d_reference(T, pp, qq, 0.05)
-        m_q = score_poses_3d3d_quad(T, pp, qq, 0.05)
-        np.testing.assert_allclose(np.asarray(m_q), np.asarray(m_ref), rtol=2e-3)
-
+class TestBestPose:
     def test_best_pose_finds_true_winner(self):
         rng = np.random.default_rng(2)
         T = _poses(3, 512)
@@ -156,104 +77,20 @@ class TestQuadFormScorer:
         assert int(best) == 41
         assert float(score) < 1e-6
 
-    @pytest.mark.parametrize("selection", ["topk", "approx", "group"])
-    def test_finalist_window_adversarial(self, selection):
-        """Round-3 verdict Weak #6: many hypotheses within ~1% fast-MSAC of
-        the winner, with threshold-STRADDLING residuals so their inlier sets
-        genuinely differ. The two-stage path (fast bf16-emulated ranking +
-        exact finalist re-score) must land on a winner whose refit agrees
-        with the exact-path refit — i.e. the near-tie band really is
-        interchangeable for the refit that follows. Parametrized over every
-        finalist-selection scheme (round-5: "group" contiguous argmin is
-        the production default — 0.6 us vs top_k's 21 us at K=32768)."""
-        from rgbd_pose_estimation_tpu.core.lie import se3_exp as _exp
-        from rgbd_pose_estimation_tpu.solvers.absolute_orientation import kabsch
-
-        rng = np.random.default_rng(7)
-        tau = 0.05
-        n, k = 256, 2048
-        p = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-        # 60% solid inliers (|r| ~ 0.2 tau — every near-tie counts them) +
-        # 40% threshold-STRADDLERS (|r| in [0.7, 1.3] tau — each near-tie
-        # counts a different subset). An all-straddle fixture would have no
-        # signal at all: there ANY MSAC selector (exact included) is
-        # unstable under infinitesimal tau changes, so divergence would
-        # indict the problem, not the window.
-        dirs = rng.normal(size=(n, 3))
-        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-        mags = np.where(
-            rng.uniform(size=(n, 1)) < 0.6,
-            rng.uniform(0.0, 0.2 * tau, size=(n, 1)),
-            rng.uniform(0.7 * tau, 1.3 * tau, size=(n, 1)),
-        )
-        q = p + jnp.asarray(dirs * mags, jnp.float32)
-        # All hypotheses tiny perturbations of identity: tiny se3 deltas
-        # shift straddlers across tau (materially different inlier SETS)
-        # while keeping MSAC within ~2% of the winner.
-        deltas = rng.normal(size=(k, 6)) * 0.05 * tau
-        deltas[0] = 0.0
-        T = _exp(jnp.asarray(deltas, jnp.float32))
-
-        exact, _ = score_poses_3d3d_reference(T, p, q, tau)
-        exact = np.asarray(exact)
-        spread = exact / exact.min() - 1.0
-        assert (spread < 0.02).sum() >= 64, "fixture not adversarial enough"
-
-        best_2s, score_2s = best_pose_3d3d(
-            T, p, q, tau, impl="two_stage", selection=selection
-        )
-        best_ex, score_ex = best_pose_3d3d(T, p, q, tau, impl="exact")
-        # Measured selection bound (440+ hypotheses within 2% exact-MSAC):
-        # bf16 fast-score noise can rank the exact optimum outside the
-        # finalist window, costing up to ~3% exact-MSAC on the PRE-refit
-        # pick (measured 2.7% here; 5% asserted). The refit-agreement
-        # assertion below is the actual contract — near-ties share a refit
-        # basin, so the engine's post-selection refit erases the gap.
-        assert float(score_2s) <= exact.min() * 1.05
-
-        def refit(T0, rounds=3):
-            Tc = np.asarray(T0)
-            for _ in range(rounds):
-                e = np.sum(
-                    (np.asarray(q) - (np.asarray(p) @ Tc[:3, :3].T + Tc[:3, 3]))
-                    ** 2,
-                    axis=-1,
-                )
-                w = (e < tau * tau).astype(np.float32)
-                if w.sum() < 3:
-                    break
-                Tc = np.asarray(kabsch(p, q, weights=jnp.asarray(w)))
-            return Tc
-
-        # ...and the refit from its winner must match the exact-path refit.
-        Ta, Tb = refit(T[int(best_2s)]), refit(T[int(best_ex)])
-        np.testing.assert_allclose(Ta[:3, :3], Tb[:3, :3], atol=2e-3)
-        np.testing.assert_allclose(Ta[:3, 3], Tb[:3, 3], atol=2e-3)
-
-    def test_top_scales_with_k(self):
-        # top=0 (default) widens the finalist window as K grows.
-        rng = np.random.default_rng(8)
-        T = _poses(9, 4096)
-        p = jnp.asarray(rng.normal(size=(128, 3)), jnp.float32)
-        q = se3_apply(T[99][None], p[None])[0]
-        best, _ = best_pose_3d3d(T, p, q, 0.05, impl="two_stage")
-        assert int(best) == 99
-
     def test_best_pose_nan_guard(self):
-        # A NaN pose must never win, in either impl path.
+        # A NaN pose must never win.
         rng = np.random.default_rng(3)
         T = np.array(_poses(4, 256))  # writable copy
         p = jnp.asarray(rng.normal(size=(128, 3)), jnp.float32)
         q = se3_apply(jnp.asarray(T[7])[None], p[None])[0]
         T[9] = np.nan
-        for impl in ("auto", "exact"):
-            best, score = best_pose_3d3d(jnp.asarray(T), p, q, 0.05, impl=impl)
-            assert int(best) == 7
-            assert np.isfinite(float(score))
+        best, score = best_pose_3d3d(jnp.asarray(T), p, q, 0.05)
+        assert int(best) == 7
+        assert np.isfinite(float(score))
 
 
 class TestScore2D3D:
-    def test_pallas_matches_reference(self):
+    def test_plain_matches_reference(self):
         rng = np.random.default_rng(0)
         T = _poses(1, 256)
         pts = jnp.asarray(rng.normal(size=(128, 3)), jnp.float32) + jnp.asarray(
@@ -261,24 +98,24 @@ class TestScore2D3D:
         )
         obs = jnp.asarray(rng.normal(size=(128, 2)) * 0.3, jnp.float32)
         m_ref, c_ref = score_poses_2d3d_reference(T, pts, obs, 0.02)
-        m_pal, c_pal = score_poses_2d3d(T, pts, obs, 0.02, impl="interpret")
+        m, c = score_poses_2d3d(T, pts, obs, 0.02)
         np.testing.assert_allclose(
-            np.asarray(m_pal), np.asarray(m_ref), rtol=1e-4, atol=1e-6
+            np.asarray(m), np.asarray(m_ref), rtol=1e-4, atol=1e-6
         )
-        np.testing.assert_array_equal(np.asarray(c_pal), np.asarray(c_ref))
+        np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
 
     def test_behind_camera_is_outlier(self):
         T = jnp.eye(4)[None].repeat(256, axis=0)
         pts = jnp.asarray([[0.0, 0.0, -1.0]] * 128)
         obs = jnp.zeros((128, 2))
-        msac, count = score_poses_2d3d_reference(T, pts, obs, 0.1)
-        assert float(count.max()) == 0.0
+        for score in (score_poses_2d3d, score_poses_2d3d_reference):
+            msac, count = score(T, pts, obs, 0.1)
+            assert float(count.max()) == 0.0
 
 
 class TestPackedPoses:
-    """Round-5 layout-rule API surface: packed (K, 12) rows everywhere a
-    second consumer of a (K, 4, 4) tensor would force the canonical
-    tiled-layout materialization (BASELINE.md round-5)."""
+    """Packed (K, 12) pose rows: the 2d3d engine scores them and gathers
+    its winner from them."""
 
     def test_pack_unpack_roundtrip(self):
         from rgbd_pose_estimation_tpu.ops.ransac_score import (
@@ -302,22 +139,17 @@ class TestPackedPoses:
         pts = jnp.asarray(rng.normal(size=(128, 3)) + [0, 0, 4], jnp.float32)
         obs3 = se3_apply(T[9][None], pts[None])[0]
         obs = obs3[:, :2] / obs3[:, 2:3]
-        m_mat, c_mat = score_poses_2d3d_reference(T, pts, obs, 0.02)
-        m_pak, c_pak = score_poses_2d3d_reference(
-            pack_poses(T), pts, obs, 0.02
-        )
+        m_mat, c_mat = score_poses_2d3d(T, pts, obs, 0.02)
+        m_pak, c_pak = score_poses_2d3d(pack_poses(T), pts, obs, 0.02)
         np.testing.assert_allclose(np.asarray(m_pak), np.asarray(m_mat))
         np.testing.assert_array_equal(np.asarray(c_pak), np.asarray(c_mat))
 
     def test_best_pose_return_pose_is_exact(self):
-        """return_pose reconstructs the winner from quad feature rows —
-        must be BITWISE the winning row of T (R copied, t = (-2t)/(-2))."""
+        """return_pose hands back BITWISE the winning row of T."""
         rng = np.random.default_rng(6)
         T = _poses(7, 512)
         p = jnp.asarray(rng.normal(size=(256, 3)), jnp.float32)
         q = se3_apply(T[123][None], p[None])[0]
-        b, s, Tw = best_pose_3d3d(
-            T, p, q, 0.05, impl="two_stage", return_pose=True
-        )
+        b, s, Tw = best_pose_3d3d(T, p, q, 0.05, return_pose=True)
         assert int(b) == 123
         np.testing.assert_array_equal(np.asarray(Tw), np.asarray(T[123]))

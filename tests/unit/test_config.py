@@ -32,9 +32,8 @@ class TestConfig:
         cfg = load_yaml_config(
             os.path.join(REPO, "configs", "config3_dense_icp_odometry.yaml")
         )
-        # Round-5 iteration sweep (BASELINE.md): (3,4,6) measured
-        # equal-or-better hard-mode ATE than the classic (5,7,10) at
-        # 0.98 ms/track.
+        # (3,4,6) gave equal-or-better hard-mode ATE than the classic
+        # (5,7,10).
         assert cfg.icp.iters_per_level == (3, 4, 6)
 
     def test_unknown_key_raises(self, tmp_path):

@@ -229,9 +229,8 @@ class TestPhotometric:
 class TestSourceStride:
     """Gather-index thinning (IcpConfig.source_stride): accuracy parity.
 
-    The association gather is index-rate-bound (~0.29 G idx/s measured,
-    tools/roofline.py) and dominates the GN step at full resolution, so
-    production configs thin the SOURCE residual sample. Point-to-plane ICP
+    Production configs thin the SOURCE residual sample to cut the
+    association gather and the reduction per GN step. Point-to-plane ICP
     is overdetermined enough that stride-2 sampling must not move the pose.
     """
 
@@ -255,7 +254,7 @@ class TestReassocEvery:
     def test_fixed_correspondence_inner_steps_track(self):
         """reassoc_every=2 (fixed-correspondence inner GN steps) must track
         the synthetic warped scene to the same tolerance as the default
-        every-iteration association (BASELINE.md round-3 experiment)."""
+        every-iteration association."""
         import dataclasses
 
         cam = CameraIntrinsics(

@@ -63,9 +63,7 @@ class TestRansac3D3D:
         assert agree > 0.9
 
     def test_odd_hypothesis_count(self):
-        # Round-3 verdict Weak #5: a non-tileable K (e.g. 1000) must run
-        # end-to-end — the moments/score kernels fall back to their jnp
-        # twins instead of asserting.
+        # Round-3 verdict Weak #5: any K (e.g. 1000) must run end-to-end.
         p, q, T, _ = synthetic_correspondences(
             jax.random.key(30), n=300, outlier_frac=0.3, noise=0.002
         )

@@ -1,7 +1,7 @@
 """On-TPU FAST+BRIEF detector: localization, invariance, end-to-end pose.
 
 The detector replaces the host OpenCV ORB path (SURVEY.md §2.1 stretch:
-on-TPU FAST/BRIEF); these tests pin its contract: corners land where
+on-device FAST/BRIEF); these tests pin its contract: corners land where
 corners are, descriptors survive rotation, and the full device-side
 front-end feeds RANSAC well enough to recover a ground-truth pose.
 """

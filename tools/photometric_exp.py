@@ -1,6 +1,6 @@
 """Photometric-term cost/accuracy experiment (round-4 verdict Weak #3).
 
-The DVO-style intensity residual rides the fused JtJ kernel
+The DVO-style intensity residual rides the JtJ reduction
 (icp/dense.py) and provably fixes the flat-wall geometric degeneracy
 (tests/unit/test_icp.py::test_photometric_*), but no driver config ships a
 nonzero ``photometric_weight`` — this script closes the decision with
@@ -8,10 +8,10 @@ data, the same discipline as the reassoc experiment (tools/reassoc_exp.py).
 
 Measures, on the 10-frame 640x480 hard-mode (Kinect-degraded handheld)
 sequence at the config-3 stride + reassoc settings: ATE RMSE + in-program
-track time for photometric_weight in {0, 0.1, 0.5}. The keep/revert
-decision and the table go to BASELINE.md "Measured — round 5".
+track time for photometric_weight in {0, 0.1, 0.5}. Record the table in
+PERF.md with the card's name and power limit.
 
-Run: python tools/photometric_exp.py   (TPU; quiet box)
+Run: python tools/photometric_exp.py   (on the GPU, nothing else running)
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tools.roofline import timeit_scan, _pin_confirmed_execution
+from tools.roofline import timeit_scan
 
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu.data.synthetic import synthetic_sequence_hard
@@ -35,7 +35,6 @@ from rgbd_pose_estimation_tpu.utils.config import IcpConfig
 
 def run(H=480, W=640, n_frames=10, stride=(4, 4, 2), reassoc=2,
         weights=(0.0, 0.1, 0.5), seeds=(5, 6, 7)):
-    _pin_confirmed_execution()
     cam = CameraIntrinsics(
         fx=525.0, fy=525.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, width=W, height=H
     )

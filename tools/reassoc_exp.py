@@ -1,18 +1,15 @@
-"""Association-reuse experiment for the ICP gather wall (VERDICT r2 item 10).
+"""Association-reuse experiment for the ICP gather (VERDICT r2 item 10).
 
-The finest-level GN step is ~95% projective association (the gather unit is
-index-rate-bound at ~0.29 G idx/s — BASELINE.md round-2 anatomy). The one
-remaining lever after source-stride thinning is issuing the gather LESS
-OFTEN: classic ICP alternation permits several fixed-correspondence
-minimize steps per association (``IcpConfig.reassoc_every``).
+Classic ICP alternation permits several fixed-correspondence minimize
+steps per association (``IcpConfig.reassoc_every``), so the gather runs
+less often.
 
 This script measures, on the 10-frame 640x480 hard-mode (Kinect-degraded
 handheld) sequence at the config-3 stride:  ATE RMSE + in-program track
-time for reassoc_every in {1, 2, 3}.  Keep/revert decision and the table go
-to BASELINE.md "Measured — rounds 3+4" (recorded: cond-era null result
-diagnosed, trace-time skip landed, config-3 ships k=2).
+time for reassoc_every in {1, 2, 3}. Record the table in PERF.md with the
+card's name and power limit.
 
-Run: python tools/reassoc_exp.py   (TPU; quiet box)
+Run: python tools/reassoc_exp.py   (on the GPU, nothing else running)
 """
 
 from __future__ import annotations
@@ -26,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tools.roofline import timeit_scan, _pin_confirmed_execution
+from tools.roofline import timeit_scan
 
 from rgbd_pose_estimation_tpu.core.camera import CameraIntrinsics
 from rgbd_pose_estimation_tpu.data.synthetic import synthetic_sequence_hard
@@ -36,7 +33,6 @@ from rgbd_pose_estimation_tpu.utils.config import IcpConfig
 
 
 def run(H=480, W=640, n_frames=10, stride=(4, 4, 2)):
-    _pin_confirmed_execution()
     cam = CameraIntrinsics(
         fx=525.0, fy=525.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5, width=W, height=H
     )
